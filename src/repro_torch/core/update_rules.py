@@ -1,0 +1,245 @@
+"""Pluggable single-site update rules — one registry, every backend.
+
+The port of ``repro.core.update_rules``. Each :class:`UpdateRule` exposes
+three forms of the same transition kernel:
+
+``flip_probs(sigma, nn, probs, beta, field=0.0)``
+    Float-uniform form (paper pipeline): ``probs`` are uniforms in [0, 1);
+    the compare happens in the lattice dtype, as in the JAX package.
+
+``flip_bits(sigma, nn, bits, beta)``
+    Raw-bits form (kernel semantics): uint32 bits (an int32 bit pattern),
+    top 24 bits -> f32 uniform, f32 select-chain table, f32 compare.
+
+``kernel_form(beta)``
+    Returns ``fn(sigma, nn_f32, bits)`` with the table fixed on the host:
+    the form the kernels' plain versions run. :func:`kernel_table` gives
+    the same five f32 values to the CUDA kernels.
+
+Rules: ``metropolis_lut`` (exact 5-entry table), ``metropolis_exp`` (the
+paper's per-site ``exp``; same table on the bits path) and ``heat_bath``
+(Glauber). Aliases ``lut``, ``exp``, ``metropolis`` and ``glauber`` are
+accepted by :func:`get_rule`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import numpy as np
+import torch
+
+_INV_2_24 = 1.0 / float(1 << 24)
+
+# x = sigma * nn (metropolis) or nn (heat-bath) lattice values, 2-D torus.
+_X_VALUES = (-4.0, -2.0, 0.0, 2.0, 4.0)
+
+
+def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 bits (int32 pattern) -> f32 uniform in [0, 1) from the top 24
+    bits, exact in f32."""
+    return ((bits >> 8) & 0xFFFFFF).to(torch.float32) * _INV_2_24
+
+
+def _select5(x: torch.Tensor, t) -> torch.Tensor:
+    """5-entry table lookup over x in {-4,-2,0,2,4} as a select chain,
+    thresholds ``x <= -3, -1, 1, 3`` as in the reference. ``t`` holds five
+    values of x's dtype."""
+    t = [torch.as_tensor(v, dtype=x.dtype, device=x.device) for v in t]
+    return torch.where(
+        x <= -3.0, t[0],
+        torch.where(x <= -1.0, t[1],
+                    torch.where(x <= 1.0, t[2],
+                                torch.where(x <= 3.0, t[3], t[4]))))
+
+
+# ---------------------------------------------------------------------------
+# Rule definition / registry
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class UpdateRule:
+    """One single-site dynamics, in every form a backend needs."""
+    name: str
+    flip_probs: Callable        # (sigma, nn, probs, beta, field=0.0)
+    flip_bits: Callable         # (sigma, nn, bits, beta)  float-compare
+    kernel_form: Callable       # (beta) -> fn(sigma, nn_f32, bits)
+    table: Callable             # (beta) -> five f32 kernel table values
+    supports_field: bool = False
+
+
+_REGISTRY: dict = {}
+_ALIASES = {
+    "lut": "metropolis_lut",
+    "exp": "metropolis_exp",
+    "metropolis": "metropolis_lut",
+    "glauber": "heat_bath",
+}
+
+
+def register_rule(rule: UpdateRule) -> UpdateRule:
+    _REGISTRY[rule.name] = rule
+    return rule
+
+
+def get_rule(name: str) -> UpdateRule:
+    """Look up a rule by canonical name or alias ('lut', 'exp', ...)."""
+    key = _ALIASES.get(name, name)
+    try:
+        return _REGISTRY[key]
+    except KeyError:
+        raise ValueError(
+            f"unknown update rule {name!r}; known: "
+            f"{sorted(_REGISTRY)} (aliases {sorted(_ALIASES)})") from None
+
+
+def rule_names() -> tuple:
+    return tuple(sorted(_REGISTRY))
+
+
+def kernel_table(rule: str, beta: float) -> np.ndarray:
+    """The five f32 table values a rule's kernel form compares against:
+    f64 ``math.exp`` rounded once to f32."""
+    return np.asarray(get_rule(rule).table(float(beta)), np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Metropolis probability tables
+# ---------------------------------------------------------------------------
+
+
+def acceptance_table(beta, dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """acc[k] = exp(-2*beta*x) for x = 2k-4, k=0..4 (x = sigma*nn), an f32
+    ``exp`` cast to ``dtype``."""
+    x = torch.arange(-4.0, 5.0, 2.0, dtype=torch.float32, device=device)
+    b = torch.tensor(float(beta), dtype=torch.float32, device=device)
+    return torch.exp(-2.0 * b * x).to(dtype)
+
+
+def metropolis_table_f32(beta) -> list:
+    return [np.float32(math.exp(-2.0 * float(beta) * x)) for x in _X_VALUES]
+
+
+def heat_bath_table_f32(beta) -> list:
+    """p_up[k] = f32 sigmoid(2*beta*nn) for nn = 2k-4 — P(new spin = +1)."""
+    return [np.float32(1.0 / (1.0 + math.exp(-2.0 * float(beta) * nn)))
+            for nn in _X_VALUES]
+
+
+def metropolis_acceptance(nn: torch.Tensor, sigma: torch.Tensor, beta,
+                          method: str = "lut",
+                          field: float = 0.0) -> torch.Tensor:
+    """P(accept flip of sigma) given neighbour sum nn. Same dtype as sigma.
+
+    A field h forces the per-site exp path: acceptance is
+    exp(-2*beta*(x + s*h)) with x = sigma*nn.
+    """
+    x = nn * sigma  # in {-4,-2,0,2,4}, exact in bf16
+    b = torch.tensor(float(beta), dtype=torch.float32, device=sigma.device)
+    if field:
+        arg = x.float() + sigma.float() * np.float32(field)
+        return torch.exp(-2.0 * b * arg).to(sigma.dtype)
+    if method == "exp":
+        return torch.exp(-2.0 * b * x.float()).to(sigma.dtype)
+    if method == "lut":
+        table = acceptance_table(beta, sigma.dtype, sigma.device)
+        idx = ((x.float() + 4.0) * 0.5).to(torch.int64)
+        return table[idx]
+    raise ValueError(f"unknown acceptance method {method!r}")
+
+
+# ---------------------------------------------------------------------------
+# Metropolis forms
+# ---------------------------------------------------------------------------
+
+
+def _metropolis_flip_probs(method):
+    def flip(sigma, nn, probs, beta, field: float = 0.0):
+        acc = metropolis_acceptance(nn, sigma, beta, method, field)
+        flips = probs.to(acc.dtype) < acc
+        return torch.where(flips, -sigma, sigma)
+    return flip
+
+
+def _metropolis_kernel_form(beta: float):
+    t = metropolis_table_f32(beta)
+
+    def flip(sigma, nn, bits):
+        x = nn * sigma.float()
+        acc = _select5(x, t)
+        flips = bits_to_uniform(bits) < acc
+        return torch.where(flips, -sigma, sigma)
+
+    return flip
+
+
+def _metropolis_flip_bits(sigma, nn, bits, beta):
+    return _metropolis_kernel_form(float(beta))(sigma, nn.float(), bits)
+
+
+# ---------------------------------------------------------------------------
+# Heat-bath (Glauber) forms
+# ---------------------------------------------------------------------------
+
+
+def _heat_bath_flip_probs(sigma, nn, probs, beta, field: float = 0.0):
+    """Draw the new spin from the exact conditional, ignoring the old one:
+    P(+1) = sigmoid(2*beta*(nn + h)), compared in the lattice dtype."""
+    arg = nn.float()
+    if field:
+        arg = arg + np.float32(field)
+    b = torch.tensor(float(beta), dtype=torch.float32, device=sigma.device)
+    p_up = torch.sigmoid(2.0 * b * arg).to(sigma.dtype)
+    up = probs.to(p_up.dtype) < p_up
+    one = torch.ones((), dtype=sigma.dtype, device=sigma.device)
+    return torch.where(up, one, -one)
+
+
+def _heat_bath_kernel_form(beta: float):
+    t = heat_bath_table_f32(beta)
+
+    def draw(sigma, nn, bits):
+        p_up = _select5(nn, t)                     # keyed on nn, not sigma*nn
+        up = bits_to_uniform(bits) < p_up
+        one = torch.ones((), dtype=sigma.dtype, device=sigma.device)
+        return torch.where(up, one, -one)
+
+    return draw
+
+
+def _heat_bath_flip_bits(sigma, nn, bits, beta):
+    return _heat_bath_kernel_form(float(beta))(sigma, nn.float(), bits)
+
+
+# ---------------------------------------------------------------------------
+# Registry contents
+# ---------------------------------------------------------------------------
+
+metropolis_lut = register_rule(UpdateRule(
+    name="metropolis_lut",
+    flip_probs=_metropolis_flip_probs("lut"),
+    flip_bits=_metropolis_flip_bits,
+    kernel_form=_metropolis_kernel_form,
+    table=metropolis_table_f32,
+    supports_field=True,        # field forces the exp path internally
+))
+
+metropolis_exp = register_rule(UpdateRule(
+    name="metropolis_exp",
+    flip_probs=_metropolis_flip_probs("exp"),
+    flip_bits=_metropolis_flip_bits,
+    kernel_form=_metropolis_kernel_form,
+    table=metropolis_table_f32,
+    supports_field=True,
+))
+
+heat_bath = register_rule(UpdateRule(
+    name="heat_bath",
+    flip_probs=_heat_bath_flip_probs,
+    flip_bits=_heat_bath_flip_bits,
+    kernel_form=_heat_bath_kernel_form,
+    table=heat_bath_table_f32,
+    supports_field=True,
+))

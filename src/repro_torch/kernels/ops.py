@@ -1,0 +1,87 @@
+"""Public wrappers around the checkerboard kernels.
+
+The port of ``repro.kernels.ops``. ``sweep(quads, key, step, beta)`` runs
+one full lattice sweep (black + white) with counter-based bits, on one of
+three backends:
+
+* ``pallas``       — the tile-fetch kernel (``update_color_tiles``)
+* ``pallas_lines`` — the edge-line kernel (``update_color_lines``)
+* ``ref``          — the plain oracle with identical bit-level semantics
+
+The backend names are the JAX package's; on a CUDA tensor the first two
+launch the CUDA kernels, on a CPU tensor their plain versions run.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import random as jr
+from repro_torch.core import lattice as L
+from repro_torch.kernels import checkerboard as kern
+from repro_torch.kernels import ref as kref
+
+
+def _block_quads(quads: torch.Tensor, bs: int) -> torch.Tensor:
+    """[4, R, C] -> contiguous [4, R/bs, C/bs, bs, bs]."""
+    return torch.stack([L.block(quads[i], bs) for i in range(4)])
+
+
+def _unblock_quads(qb: torch.Tensor) -> torch.Tensor:
+    return torch.stack([L.unblock(qb[i]) for i in range(4)])
+
+
+def color_bits(key, step: int, color: int, shape, device="cpu"):
+    """uint32 bits (int32 pattern) for the two active quads of one colour
+    update: ``bits(fold_in(fold_in(key, step), color), (2,) + shape)``."""
+    k = jr.fold_in(jr.fold_in(key, step), color)
+    return jr.bits(k, (2,) + tuple(shape), device)
+
+
+def update_color(quads_blocked, bits, beta: float, color: int,
+                 backend: str = "pallas", edges=None,
+                 rule: str = "metropolis_lut"):
+    """One colour update; returns the updated stack.
+
+    The ``pallas`` and ``pallas_lines`` kernels update ``quads_blocked`` in
+    place and return it; ``ref`` returns a new stack.
+    """
+    if backend == "pallas":
+        return kern.update_color_tiles(quads_blocked, bits, beta, color, rule)
+    if backend == "pallas_lines":
+        return kern.update_color_lines(quads_blocked, bits, beta, color, rule,
+                                       edges)
+    if backend == "ref":
+        kh = L.kernel_compact(quads_blocked.shape[-1], quads_blocked.dtype,
+                              quads_blocked.device)
+        return kref.update_color_ref(quads_blocked, bits, kh, beta, color,
+                                     rule)
+    raise ValueError(f"unknown backend {backend!r}")
+
+
+def sweep_blocked(qb, key, step: int, beta: float, backend: str,
+                  rule: str = "metropolis_lut"):
+    """One sweep of blocked quads [4, mr, mc, bs, bs]: black, then white,
+    each with its own ``color_bits``."""
+    for color in (0, 1):
+        bits = color_bits(key, step, color, qb.shape[1:], qb.device)
+        qb = update_color(qb, bits, beta, color, backend, rule=rule)
+    return qb
+
+
+def sweep(quads, key, step: int, *, beta: float, bs: int = L.MXU_BLOCK,
+          backend: str = "pallas",
+          rule: str = "metropolis_lut") -> torch.Tensor:
+    """One full sweep of [4, R, C] compact quads. Returns new quads."""
+    qb = sweep_blocked(_block_quads(quads, bs), key, step, beta, backend,
+                        rule)
+    return _unblock_quads(qb)
+
+
+def run_sweeps(quads, key, *, n_sweeps: int, beta: float,
+               bs: int = L.MXU_BLOCK, backend: str = "pallas",
+               rule: str = "metropolis_lut") -> torch.Tensor:
+    """Measurement-free multi-sweep loop on the kernel path."""
+    qb = _block_quads(quads, bs)
+    for step in range(n_sweeps):
+        qb = sweep_blocked(qb, key, step, beta, backend, rule)
+    return _unblock_quads(qb)

@@ -1,0 +1,175 @@
+"""Counter-based threefry2x32, bitwise equal to what the JAX package draws.
+
+The JAX reference takes every random number from ``jax.random`` with the
+threefry2x32 implementation in its partitionable counter layout. This
+module reproduces the parts it uses:
+
+* keys are host-side pairs of 32-bit words ``(k0, k1)`` held as Python
+  ints — ``PRNGKey``, ``fold_in`` and ``split`` run on the host, so a sweep
+  loop that folds in its step never waits for the device;
+* ``bits``, ``uniform`` and ``bernoulli`` run on the caller's device.
+  Element ``n`` of a draw of shape ``S`` is ``threefry(key, (hi, lo))`` of
+  its flat row-major index ``n = hi * 2**32 + lo``, and a 32-bit draw is
+  ``out0 ^ out1``. Because every element is addressed by its counter, the
+  draw is generated in chunks without changing a bit.
+
+The uint32 arithmetic runs in int64 lanes masked to 32 bits: PyTorch has
+no ``+``, ``<<``, ``>>`` or ``<`` for ``torch.uint32`` on the CPU. Raw
+32-bit draws come back as ``torch.int32`` tensors holding the uint32 bit
+pattern, the layout the kernels read.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+Key = tuple  # (k0, k1), two ints in [0, 2**32)
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+# Elements per generated chunk: five int64 lanes of this length are live
+# at once (about 1.3 GiB at 2**25).
+CHUNK = 1 << 25
+
+# (random bits drawn, mantissa bits, bit pattern of 1.0, carrier) per
+# uniform dtype. As in JAX, a dtype with fewer than 8 mantissa bits draws
+# 8 random bits.
+_FLOAT_LAYOUT = {
+    torch.float32: (32, 23, 0x3F800000, torch.int32),
+    torch.bfloat16: (8, 7, 0x3F80, torch.int16),
+    torch.float16: (16, 10, 0x3C00, torch.int16),
+}
+
+
+# ---------------------------------------------------------------------------
+# Host-side keys
+# ---------------------------------------------------------------------------
+
+
+def _rotl_int(x: int, r: int) -> int:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def _threefry_int(k0: int, k1: int, x0: int, x1: int) -> tuple:
+    """threefry2x32 of one counter pair, in Python ints."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl_int(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def PRNGKey(seed: int) -> Key:
+    """``jax.random.PRNGKey(seed)`` for a seed that fits int32."""
+    seed = int(seed)
+    if not -(1 << 31) <= seed < (1 << 31):
+        raise ValueError(f"seed {seed} does not fit int32")
+    return (0, seed & _M32)
+
+
+def key_data(key: Key) -> tuple:
+    """The key's two uint32 words (``jax.random.key_data``)."""
+    return (int(key[0]) & _M32, int(key[1]) & _M32)
+
+
+def fold_in(key: Key, data: int) -> Key:
+    """``jax.random.fold_in``: threefry of the counter pair ``(0, data)``."""
+    return _threefry_int(key[0], key[1], 0, int(data) & _M32)
+
+
+def split(key: Key, num: int = 2) -> list:
+    """``jax.random.split`` (partitionable layout): key i hashes counter i."""
+    return [_threefry_int(key[0], key[1], i >> 32, i & _M32)
+            for i in range(num)]
+
+
+# ---------------------------------------------------------------------------
+# Device-side draws
+# ---------------------------------------------------------------------------
+
+
+def _rotl_(x: torch.Tensor, r: int) -> torch.Tensor:
+    hi = x >> (32 - r)
+    return x.bitwise_left_shift_(r).bitwise_and_(_M32).bitwise_or_(hi)
+
+
+def threefry2x32(key: Key, x0: torch.Tensor, x1: torch.Tensor) -> tuple:
+    """threefry2x32 of int64 counter lanes (values in [0, 2**32)).
+
+    Updates ``x0`` and ``x1`` in place and returns them."""
+    k0, k1 = key_data(key)
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0.add_(ks[0]).bitwise_and_(_M32)
+    x1.add_(ks[1]).bitwise_and_(_M32)
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0.add_(x1).bitwise_and_(_M32)
+            _rotl_(x1, r).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(_M32)
+        x1.add_(ks[(i + 2) % 3] + i + 1).bitwise_and_(_M32)
+    return x0, x1
+
+
+def _bits_lanes(key: Key, start: int, stop: int,
+                device) -> torch.Tensor:
+    """32-bit draws for flat counters [start, stop) as int64 lanes."""
+    n = torch.arange(start, stop, dtype=torch.int64, device=device)
+    hi = n >> 32
+    lo = n.bitwise_and_(_M32)
+    x0, x1 = threefry2x32(key, hi, lo)
+    return x0.bitwise_xor_(x1)
+
+
+def _chunks(total: int):
+    for start in range(0, total, CHUNK):
+        yield start, min(start + CHUNK, total)
+
+
+def _as_int32(v: torch.Tensor) -> torch.Tensor:
+    """int64 lanes in [0, 2**32) -> int32 tensor with the same bit pattern
+    (the lanes are overwritten with their signed value)."""
+    return v.add_(1 << 31).bitwise_and_(_M32).sub_(1 << 31).to(torch.int32)
+
+
+def bits(key: Key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as an int32 bit pattern."""
+    shape = tuple(int(s) for s in shape)
+    total = math.prod(shape)
+    out = torch.empty(total, dtype=torch.int32, device=device)
+    for start, stop in _chunks(total):
+        out[start:stop] = _as_int32(_bits_lanes(key, start, stop, device))
+    return out.view(shape)
+
+
+def uniform(key: Key, shape, dtype=torch.float32,
+            device="cpu") -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype)`` on [0, 1)."""
+    try:
+        rng_bits, nmant, one, itype = _FLOAT_LAYOUT[dtype]
+    except KeyError:
+        raise ValueError(f"uniform draws support "
+                         f"{sorted(map(str, _FLOAT_LAYOUT))}, got {dtype}"
+                         ) from None
+    shape = tuple(int(s) for s in shape)
+    total = math.prod(shape)
+    out = torch.empty(total, dtype=dtype, device=device)
+    for start, stop in _chunks(total):
+        v = _bits_lanes(key, start, stop, device)
+        if rng_bits < 32:
+            v.bitwise_and_((1 << rng_bits) - 1)   # the draw is cut short
+        v = (v >> (rng_bits - nmant)).bitwise_or_(one)
+        out[start:stop] = v.to(itype).view(dtype) - 1.0
+    return out.view(shape)
+
+
+def bernoulli(key: Key, p: float = 0.5, shape=(),
+              device="cpu") -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: an f32 uniform below ``p``."""
+    return uniform(key, shape, torch.float32, device) < p
