@@ -19,9 +19,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    backends' final states bitwise equal; the kernel path at 256^2 on the
    card equal to the CPU plain path (state and series); the "chain"
    scenario at 4096^2;
-5. CUDA-event timings at the main path's shapes: each kernel against its
+5. every other ported scenario at a small size, card == CPU bitwise
+   (state, series, moments, extras): ensemble (bf16, f32), tempering
+   (with accepted swaps), 3-D
+   at 16^3, Swendsen-Wang and Wolff at one and two betas, Potts q=3
+   checkerboard (heat-bath, Metropolis) and clusters, and f32 chains at a
+   beta where torch's own exp differs from the port's XLA f32 tables;
+6. each of those scenarios at a size its users run, host clock per sweep
+   around a synchronised ``IsingEngine.run`` after a warm-up run, with
+   label iterations (one changed-flag host sync each) per cluster sweep;
+   a 64-replica ensemble at 256^2 stepped in one pass against the same
+   replicas one at a time (bitwise equal, both timed); the share of a
+   sweep that is threefry bits, and the share of a Swendsen-Wang sweep
+   spent in threefry bits, label rounds and the changed-flag check;
+7. CUDA-event timings at the main path's shapes: each kernel against its
    bound and its plain version, color_bits, blocked_stats, sweeps per
    second without measurement (flips/ns), peak memory.
+
+Every path of phases 4-6 runs with the kernel launch counts set to 0 just
+before and read just after: 2 per sweep for the kernel backends, 0 for
+the scenarios that run no kernel.
 
 It prints one JSON line of kernel records, then the card line, then the
 contract line ``{"ok": true, "device": {...}}`` last. Without a CUDA device,
@@ -255,6 +272,318 @@ def phase_small_and_chain() -> dict:
     return dict(chain_s=seconds)
 
 
+def small_scenarios(beta_gap: float) -> list:
+    """(label, EngineConfig) of every non-kernel scenario at a small size;
+    ``beta_gap`` is where torch's exp and the f32 tables part."""
+    from repro_torch.api import EngineConfig as cfg
+    from repro_torch.api import beta_ladder
+    from repro_torch.potts.state import beta_c
+    b3 = beta_c(3)
+    potts = dict(size=64, beta=b3, model="potts", q=3, n_sweeps=3)
+    cluster = dict(size=64, n_sweeps=3)
+    chain = dict(size=64, beta=beta_gap, dtype="float32", n_sweeps=4,
+                 hot=True)
+    return [
+        ("ensemble", cfg(size=64, betas=(0.35, BETA, 0.55), n_sweeps=3)),
+        ("ensemble f32 heat_bath", cfg(size=64, betas=(0.35, BETA),
+                                       n_sweeps=3, dtype="float32",
+                                       rule="heat_bath")),
+        ("tempering", cfg(size=64, betas=beta_ladder(1.05, 1.1, 4),
+                          ensemble="tempering", exchange_every=2,
+                          n_sweeps=8)),
+        ("3d 16^3", cfg(size=16, beta=0.2216546, dims=3, block_size=0,
+                        n_sweeps=3, hot=True)),
+        ("cluster sw", cfg(beta=BETA, algorithm="swendsen_wang", **cluster)),
+        ("cluster wolff", cfg(beta=BETA, algorithm="wolff", **cluster)),
+        ("cluster sw 2 betas", cfg(betas=(0.4, 0.48),
+                                   algorithm="swendsen_wang", **cluster)),
+        ("cluster wolff 2 betas", cfg(betas=(0.4, 0.48), algorithm="wolff",
+                                      **cluster)),
+        ("potts_cb heat_bath q=3", cfg(rule="heat_bath", **potts)),
+        ("potts_cb metropolis q=3", cfg(rule="metropolis", **potts)),
+        ("potts_cluster sw q=3", cfg(algorithm="swendsen_wang", **potts)),
+        ("potts_cluster wolff q=3", cfg(algorithm="wolff", **potts)),
+        (f"chain f32 beta={beta_gap}", cfg(**chain)),
+        (f"chain f32 heat_bath beta={beta_gap}", cfg(rule="heat_bath",
+                                                     **chain)),
+    ]
+
+
+def full_scenarios() -> list:
+    """(label, EngineConfig) of every non-kernel scenario at a user size."""
+    from repro_torch.api import EngineConfig as cfg
+    from repro_torch.api import beta_ladder
+    from repro_torch.potts.state import beta_c
+    b3 = beta_c(3)
+    return [
+        ("ensemble 16 x 4096^2", cfg(
+            size=4096, betas=beta_ladder(0.9, 1.1, 16), n_sweeps=2)),
+        ("tempering 8 x 2048^2", cfg(
+            size=2048, betas=beta_ladder(0.9, 1.1, 8), ensemble="tempering",
+            exchange_every=2, n_sweeps=4)),
+        ("3d 512^3", cfg(size=512, beta=0.2216546, dims=3, block_size=0,
+                         n_sweeps=2)),
+        ("cluster sw 2048^2", cfg(size=2048, beta=BETA, n_sweeps=3,
+                                  algorithm="swendsen_wang")),
+        ("cluster wolff 2048^2", cfg(size=2048, beta=BETA, n_sweeps=3,
+                                     algorithm="wolff")),
+        ("potts_cb heat_bath q=3 4096^2", cfg(
+            size=4096, beta=b3, model="potts", q=3, rule="heat_bath",
+            n_sweeps=2)),
+        ("potts_cluster sw q=3 2048^2", cfg(
+            size=2048, beta=b3, model="potts", q=3,
+            algorithm="swendsen_wang", n_sweeps=2)),
+    ]
+
+
+def gap_beta() -> tuple:
+    """(beta, card differs): the first beta in [0.40, 0.50] whose f32
+    acceptance table from torch's own CPU exp differs from the port's
+    (XLA's) table, and whether the card's torch.exp differs there too."""
+    import numpy as np
+    import torch
+    from repro_torch.core import update_rules as R
+    x = torch.tensor(R._X_VALUES, dtype=torch.float32)
+    for beta in np.linspace(0.40, 0.50, 101):
+        beta = float(beta)
+        arg = -2.0 * torch.tensor(beta, dtype=torch.float32) * x
+        table = R.acceptance_table(beta)
+        if (torch.exp(arg) != table).any():
+            card = (torch.exp(arg.to("cuda")).cpu() != table).any()
+            return beta, bool(card)
+    raise AssertionError("no beta in [0.40, 0.50] separates torch.exp "
+                         "from the port's tables")
+
+
+def _same_result(a, b) -> bool:
+    import numpy as np
+    import torch
+
+    def eq(x, y):
+        if x is None or y is None:
+            return x is None and y is None
+        return torch.equal(x.cpu(), y.cpu())
+    if not (eq(a.state, b.state) and eq(a.magnetization, b.magnetization)
+            and eq(a.energy, b.energy) and a.extra == b.extra):
+        return False
+    if a.moments is None or b.moments is None:
+        return a.moments is None and b.moments is None
+    return a.moments.keys() == b.moments.keys() and all(
+        np.array_equal(a.moments[k], b.moments[k]) for k in a.moments)
+
+
+def _no_launches(label: str) -> None:
+    from repro_torch.kernels import checkerboard as kern
+    if any(kern.launches.values()):
+        raise AssertionError(f"{label}: a kernel was launched on a path "
+                             f"that has none: {kern.launches}")
+
+
+def phase_scenarios_small() -> float:
+    """Every non-kernel scenario: card == CPU, bitwise, at a small size."""
+    import torch
+    from repro_torch.api import IsingEngine
+    from repro_torch.kernels import checkerboard as kern
+    beta, card = gap_beta()
+    log(f"f32 table gap: torch.exp on the CPU differs from the XLA f32 "
+        f"table at beta={beta} (the card's torch.exp differs there: {card});"
+        " the port's chains use the latter")
+    for i, (label, cfg) in enumerate(small_scenarios(beta)):
+        kern.reset_launches()
+        dev = IsingEngine(cfg, device="cuda").simulate(10 + i)
+        torch.cuda.synchronize()
+        _no_launches(label)
+        cpu = IsingEngine(cfg, device="cpu").simulate(10 + i)
+        if dev.state.device.type != "cuda" or not _same_result(dev, cpu):
+            raise AssertionError(f"{label}: card != CPU")
+        if cfg.ensemble == "tempering" and not dev.extra["swap_fraction"]:
+            raise AssertionError(f"{label}: no swap accepted, so the card "
+                                 "never permuted replicas")
+        log(f"small {label}: card == CPU (state, series, moments, extra "
+            f"{dev.extra or '{}'})")
+    return beta
+
+
+def _check_series(label, res, cfg) -> None:
+    import torch
+    m, e = res.magnetization, res.energy
+    rows = cfg.n_replicas() or 1
+    t = (cfg.n_sweeps // cfg.exchange_every if cfg.ensemble == "tempering"
+         else cfg.n_sweeps)
+    if tuple(m.shape) != ((rows, t) if cfg.betas else (t,)):
+        raise AssertionError(f"{label}: series shape {tuple(m.shape)}")
+    if not (torch.isfinite(m).all() and float(m.abs().max()) <= 1.0):
+        raise AssertionError(f"{label}: bad m series {m}")
+    if e is not None and not (torch.isfinite(e).all()
+                              and float(e.abs().max()) <= 3.0):
+        raise AssertionError(f"{label}: bad E series {e}")
+
+
+def phase_scenarios_full() -> dict:
+    """Each non-kernel scenario at a size its users run, timed."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.api import IsingEngine
+    from repro_torch.cluster import label as LBL
+    from repro_torch.kernels import checkerboard as kern
+    out = {}
+    for label, cfg in full_scenarios():
+        eng = IsingEngine(cfg, device="cuda")
+        state = eng.init(jr.PRNGKey(21))
+        eng.run(state, jr.PRNGKey(20))      # warm the allocator
+        torch.cuda.synchronize()
+        kern.reset_launches()
+        LBL.reset_counters()
+        t0 = time.perf_counter()
+        res = eng.run(state, jr.PRNGKey(22))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        _no_launches(label)
+        _check_series(label, res, cfg)
+        sweeps = cfg.n_sweeps
+        spins = cfg.size ** cfg.dims * (cfg.n_replicas() or 1)
+        line = (f"full {label}: {sweeps} sweeps in {seconds:.4f} s, "
+                f"{seconds / sweeps * 1e3:.3f} ms per sweep, "
+                f"{spins * sweeps / seconds / 1e9:.4f} sites/ns")
+        if cfg.algorithm != "metropolis":
+            line += (f", {LBL.counters['iterations'] / sweeps:.1f} label "
+                     "iterations (one changed-flag sync each) per sweep")
+        if cfg.ensemble == "tempering":
+            line += f", swap fraction {res.extra['swap_fraction']}"
+        log(line)
+        out[label] = seconds / sweeps
+        del eng, state, res
+    return out
+
+
+def phase_replica_stack(n_rep: int = 64, size: int = 256,
+                        sweeps: int = 4) -> None:
+    """A temperature scan of many small replicas: the ensemble stepped in
+    one pass over the replica axis against the same replicas run one at a
+    time (each its own chain keyed fold_in(k, i) at its f32 beta, the way
+    a per-replica loop runs them); both bitwise equal, both timed after a
+    warm-up."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.api import EngineConfig, IsingEngine, beta_ladder
+    from repro_torch.core import sampler
+    cfg = EngineConfig(size=size, betas=beta_ladder(0.7, 1.3, n_rep),
+                       n_sweeps=sweeps)
+    eng = IsingEngine(cfg, device="cuda")
+    state = eng.init(jr.PRNGKey(51))
+    key = jr.PRNGKey(52)
+    betas = torch.tensor(cfg.betas, dtype=torch.float32, device="cuda")
+
+    def one_at_a_time():
+        outs = [sampler.run_chain(state[i], jr.fold_in(key, i),
+                                  sampler.ChainConfig(
+                                      beta=betas[i], n_sweeps=sweeps,
+                                      block_size=cfg.resolved_block_size()))
+                for i in range(n_rep)]
+        return [torch.stack([o[j] for o in outs]) for j in range(3)]
+
+    def wall(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / sweeps * 1e3
+
+    res, stack_ms = wall(lambda: eng.run(state, key))
+    (f, m, e), loop_ms = wall(one_at_a_time)
+    if not (torch.equal(res.state, f) and torch.equal(res.magnetization, m)
+            and torch.equal(res.energy, e)):
+        raise AssertionError("replica stack != replicas one at a time")
+    log(f"replica stack {n_rep} x {size}^2: one pass {stack_ms:.3f} ms per "
+        f"sweep, one replica at a time {loop_ms:.3f} ms per sweep "
+        f"({loop_ms / stack_ms:.1f}x), bitwise equal")
+
+
+def phase_rng_shares(per_sweep: dict) -> None:
+    """The share of a sweep that is threefry bits, for the single-site
+    scenarios: CUDA-event time of one sweep's draws at the same shapes
+    against the sweep time of phase 6."""
+    from repro_torch import random as jr
+    from repro_torch.cluster import bonds as B
+    from repro_torch.core import ising3d as I3
+    from repro_torch.core import sampler
+    key = jr.PRNGKey(41)
+    gi3 = I3.global_index3d((512,) * 3, "cuda")
+    gi2 = B.global_index(4096, 4096, device="cuda")
+    draws = {
+        "ensemble 16 x 4096^2": (1, lambda: sampler.sweep_probs(
+            [jr.fold_in(key, i) for i in range(16)], 0, (2048, 2048),
+            "float32", "cuda")),
+        "tempering 8 x 2048^2": (1, lambda: sampler.sweep_probs(
+            [jr.fold_in(key, i) for i in range(8)], 0, (1024, 1024),
+            "float32", "cuda")),
+        "3d 512^3": (2, lambda: I3.site_uniforms3d(key, gi3)),
+        "potts_cb heat_bath q=3 4096^2": (2, lambda: B.counter_bits(
+            key, gi2)),
+    }
+    for label, (count, fn) in draws.items():
+        ms = count * time_ms(fn, reps=3, warmup=1)
+        log(f"rng share {label}: {count} draws x {ms / count:.3f} ms = "
+            f"{ms:.3f} ms of {per_sweep[label] * 1e3:.3f} ms per sweep "
+            f"({ms / (per_sweep[label] * 1e3):.1%})")
+
+
+def phase_cluster_breakdown(n: int = 2048) -> None:
+    """Where one Swendsen-Wang sweep at 2048^2, beta_c goes: threefry bits
+    (two bond words and one coin word per site), label rounds on the card,
+    and the changed-flag check (labeling with a compare, reduce and host
+    sync per iteration against the same rounds enqueued without them)."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.cluster import bonds as B
+    from repro_torch.cluster import label as LBL
+    from repro_torch.cluster import sweep as CS
+    from repro_torch.core import lattice as L
+    full = L.random_lattice(jr.PRNGKey(31), n, n, device="cuda")
+    t24 = B.bond_threshold_u24(BETA)
+    key = jr.PRNGKey(32)
+    for _ in range(3):                      # equilibrate the clusters a bit
+        full = CS.cluster_sweep(full, key, t24)
+        key = jr.fold_in(key, 1)
+    gi = B.global_index(n, n, device="cuda")
+    kb, kc = jr.fold_in(key, 0), jr.fold_in(key, 1)
+    br, bd = B.fk_bonds(full, kb, t24)
+    lab, iters = LBL.label_components(br, bd, with_iters=True)
+
+    def bits():
+        B.bond_bits(kb, gi, 0)
+        B.bond_bits(kb, gi, 1)
+        B.counter_bits(kc, lab)
+
+    def rounds():
+        new = LBL.init_labels(n, n, "cuda")
+        for _ in range(2 * iters):
+            new = LBL.pointer_jump(LBL.neighbor_min(new, br, bd), jumps=1)
+
+    def wall(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    sweep_ms = wall(lambda: CS.cluster_sweep(full, key, t24))
+    bits_ms = time_ms(bits, reps=5)
+    label_ms = wall(lambda: LBL.label_components(br, bd))
+    rounds_ms = wall(rounds)
+    check_ms = label_ms - rounds_ms
+    rest = sweep_ms - bits_ms - label_ms
+    log(f"cluster sweep breakdown SW {n}^2 beta_c: {sweep_ms:.3f} ms per "
+        f"sweep; threefry bits {bits_ms:.3f} ms ({bits_ms / sweep_ms:.1%}); "
+        f"label rounds {rounds_ms:.3f} ms ({rounds_ms / sweep_ms:.1%}, "
+        f"{iters} iterations x 2 rounds); changed-flag check + sync "
+        f"{check_ms:.3f} ms ({check_ms / sweep_ms:.1%}, {iters} checks); "
+        f"rest {rest:.3f} ms ({rest / sweep_ms:.1%})")
+
+
 def bound(name: str, qb, bits) -> tuple:
     """(bound_ms, bound_by) of one launch: each input read once, each
     output written once; about 10 f32 operations per updated site."""
@@ -351,6 +680,12 @@ def main() -> int:
     phase_kernels_vs_plain(errs)
     phase_main_path(launches)
     phase_small_and_chain()
+    t_new = time.perf_counter()
+    phase_scenarios_small()
+    phase_rng_shares(phase_scenarios_full())
+    phase_replica_stack()
+    phase_cluster_breakdown()
+    log(f"new scenario phases: {time.perf_counter() - t_new:.1f} s")
     records, _ = phase_timing(launches, errs)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))

@@ -2,8 +2,7 @@
 
 The port of ``repro.api.engine``. :class:`EngineConfig` keeps every field
 and the whole of ``validate()``, so an invalid configuration raises the
-same :class:`EngineConfigError`. This slice runs the two single-chain
-2-D scenarios:
+same :class:`EngineConfigError`. Ported scenarios (one device):
 
 * ``"chain"``  (``backend="xla"``): paper Algorithm 2 in plain PyTorch
   (:mod:`repro_torch.core.sampler`), per-sweep ``(m, E)`` from the white
@@ -13,13 +12,23 @@ same :class:`EngineConfigError`. This slice runs the two single-chain
   is one launch of a CUDA kernel on the card
   (:mod:`repro_torch.kernels.checkerboard`; ``"ref"`` runs the plain
   oracle), and measured runs stream ``(m, E)`` via
-  ``measure.blocked_stats``.
+  ``measure.blocked_stats``;
+* ``"ensemble"``: R chains at the betas of ``cfg.betas``, replicas on the
+  leading axis of the state ``[R, 4, r, c]``;
+* ``"tempering"``: replica exchange (:mod:`repro_torch.core.tempering`);
+* ``"3d"``: the [D, H, W] cube (:mod:`repro_torch.core.ising3d`);
+* ``"cluster"``: Swendsen-Wang / Wolff (:mod:`repro_torch.cluster`), one
+  beta or a betas ensemble;
+* ``"potts_cb"`` / ``"potts_cluster"``: the q-state Potts model
+  (:mod:`repro_torch.potts`), checkerboard heat-bath / Metropolis or
+  Swendsen-Wang / Wolff, one beta or an ensemble.
 
-Every other scenario (ensembles, tempering, 3-D, cluster, Potts, the opt
-pipeline, the mesh) raises ``EngineConfigError`` naming it as not yet
-ported. RNG contract as in the reference: ``simulate(seed)`` splits
-``PRNGKey(seed)`` into init and chain keys, and the run is bitwise equal to
-the JAX engine's from the same seed (see ``tests/test_torch_engine.py``).
+``pipeline="opt"`` and every ``topology="mesh"`` configuration raise
+``EngineConfigError`` naming them as not yet ported. RNG contract as in the
+reference: ``simulate(seed)`` splits ``PRNGKey(seed)`` into init and chain
+keys; replica i of an ensemble is bitwise a single chain keyed
+``fold_in(key, i)``; and the run is bitwise equal to the JAX engine's from
+the same seed (``tests/test_torch_*.py``).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; keys are host-side ``(k0, k1)`` pairs
@@ -33,15 +42,20 @@ from typing import Optional
 import torch
 
 from repro_torch import random as jr
+from repro_torch.cluster import bonds as cbonds
+from repro_torch.cluster import sweep as csweep
+from repro_torch.core import checkerboard as cb
+from repro_torch.core import ising3d as I3
 from repro_torch.core import lattice as L
 from repro_torch.core import measure
 from repro_torch.core import observables as obs
 from repro_torch.core import sampler
+from repro_torch.core import tempering as pt
 from repro_torch.kernels import ops as kops
-
-# Inverse critical temperature of the 3-D model (as in the reference's
-# core.ising3d), used by beta_ladder(dims=3).
-BETA_C_3D = 0.2216546
+from repro_torch.potts import bonds as potts_bonds
+from repro_torch.potts import rules as potts_rules
+from repro_torch.potts import state as potts_state
+from repro_torch.potts import sweep as potts_sweep
 
 _BACKENDS = ("xla", "pallas", "pallas_lines", "ref")
 _TOPOLOGIES = ("single", "mesh")
@@ -291,23 +305,135 @@ def beta_ladder(t_over_tc_min: float, t_over_tc_max: float, n: int,
                 dims: int = 2) -> tuple:
     """n inverse temperatures spanning [t_min, t_max] x Tc, coldest-first
     temperature order (descending beta ladder ends hottest)."""
-    tc = (obs.critical_temperature() if dims == 2 else 1.0 / BETA_C_3D)
+    tc = (obs.critical_temperature() if dims == 2 else 1.0 / I3.BETA_C_3D)
     if n == 1:
         return (1.0 / (t_over_tc_min * tc),)
     step = (t_over_tc_max - t_over_tc_min) / (n - 1)
     return tuple(1.0 / ((t_over_tc_min + i * step) * tc) for i in range(n))
 
 
+
+
+def replica_sweep_fns(cfg: EngineConfig):
+    """The per-chain sweep family behind every multi-chain harness.
+
+    Returns ``(one_sweep, one_sweep_measured, rep_args)``:
+
+    * ``one_sweep(state, key, arg, step) -> state`` and
+      ``one_sweep_measured(state, key, arg, step) -> (state, (m, e))``
+      advance one chain by one sweep, or, given a key batch (one key per
+      replica) and per-replica args, every replica of a stack in one pass
+      with per-replica (m, e); every draw is addressed by ``(key, step)``,
+      so a chain run in chunks with absolute steps equals one straight run;
+    * ``rep_args(betas, device)`` maps the betas to the per-replica sweep
+      argument: an f32 beta tensor for single-site dynamics, int64 u24
+      bond thresholds for cluster dynamics (equal to the host thresholds
+      of a scalar beta).
+
+    A scalar-beta chain passes ``arg`` as a Python number instead
+    (:meth:`IsingEngine._static_arg`), as the reference bakes it into its
+    compiled loop. State layouts: compact quads ``[4, R, C]`` (2-D Ising
+    checkerboard), the full ``[L, L]`` view (Ising cluster sweeps), the
+    ``[H, W]`` int32 colour view (Potts) and the ``[D, H, W]`` cube (3-D),
+    each with a leading replica axis for a stack.
+    """
+    c = cfg
+
+    def beta_args(betas, device):
+        return torch.tensor(betas, dtype=torch.float32, device=device)
+
+    if c.model == "potts":
+        q = c.resolved_q()
+        if c.algorithm != "metropolis":
+            algo = c.algorithm
+
+            def one_sweep(f, k, t, step):
+                return potts_sweep.cluster_sweep(f, jr.fold_in(k, step), t,
+                                                 q, algo)
+
+            def one_sweep_measured(f, k, t, step):
+                return potts_sweep.cluster_sweep_measured(
+                    f, jr.fold_in(k, step), t, q, algo)
+
+            def rep_args(betas, device):
+                return potts_bonds.bond_threshold_traced(
+                    beta_args(betas, device))
+
+            return one_sweep, one_sweep_measured, rep_args
+
+        rule = c.rule
+
+        def one_sweep(f, k, beta, step):
+            return potts_rules.checkerboard_sweep(f, jr.fold_in(k, step),
+                                                  beta, q, rule)
+
+        def one_sweep_measured(f, k, beta, step):
+            return potts_rules.checkerboard_sweep_measured(
+                f, jr.fold_in(k, step), beta, q, rule)
+
+        return one_sweep, one_sweep_measured, beta_args
+
+    if c.dims == 3:
+        def one_sweep(f, k, beta, step):
+            return I3.sweep3d(f, k, step, beta)
+
+        def one_sweep_measured(f, k, beta, step):
+            f = I3.sweep3d(f, k, step, beta)
+            return f, (measure.site_mean(f, 3), obs.energy_per_spin3d(f))
+
+        return one_sweep, one_sweep_measured, beta_args
+
+    if c.algorithm != "metropolis":
+        algo = c.algorithm
+
+        def one_sweep(f, k, t, step):
+            return csweep.cluster_sweep(f, jr.fold_in(k, step), t, algo)
+
+        def one_sweep_measured(f, k, t, step):
+            return csweep.cluster_sweep_measured(f, jr.fold_in(k, step), t,
+                                                 algo)
+
+        def rep_args(betas, device):
+            return cbonds.bond_threshold_traced(beta_args(betas, device))
+
+        return one_sweep, one_sweep_measured, rep_args
+
+    bs = c.resolved_block_size()
+    rule = c.probs_rule()
+    field = c.field
+
+    def one_sweep(q, k, beta, step):
+        probs = sampler.sweep_probs(k, step, q.shape[-2:], c.prob_dtype,
+                                    q.device)
+        return cb.sweep_compact(q, probs, beta, bs, rule, field=field)
+
+    def one_sweep_measured(q, k, beta, step):
+        probs = sampler.sweep_probs(k, step, q.shape[-2:], c.prob_dtype,
+                                    q.device)
+        return measure.sweep_compact_measured(q, probs, beta, bs, rule,
+                                              field=field)
+
+    return one_sweep, one_sweep_measured, beta_args
+
+
 @dataclasses.dataclass
 class EngineResult:
     """What a run hands back.
 
-    state:          final compact quads [4, R, C] on the engine's device
-    magnetization:  per-sweep m, host f32 tensor [T] (None when measure=False)
-    energy:         per-sweep E/spin, same shape (None when unmeasured)
+    state:          final state on the engine's device: compact quads
+                    [4, R, C], replicas [Rr, 4, R, C], the [D, H, W] cube,
+                    or int32 colour views [H, W] / [Rr, H, W] (Potts)
+    magnetization:  per-sweep m, host f32 tensor [T] or [n_replicas, T]
+                    (None when measure=False); the Potts order parameter
+                    for model="potts"; per-round |m| [n_replicas, rounds]
+                    for tempering
+    energy:         per-sweep E/spin, same shape (None when unmeasured and
+                    for tempering)
     moments:        running averages over the measured sweeps — dict with
-                    m_abs, E, E2, E_var, m2, m4, U4, n_samples
-    extra:          scenario extras (empty for the ported scenarios)
+                    m_abs, E, E2, E_var, m2, m4, U4, n_samples (numpy arrays
+                    of shape [n_replicas] for ensembles; None for tempering)
+    extra:          scenario extras (betas of an ensemble; tempering's
+                    swap_fraction and betas)
     """
     state: torch.Tensor
     magnetization: Optional[torch.Tensor] = None
@@ -316,7 +442,8 @@ class EngineResult:
     extra: dict = dataclasses.field(default_factory=dict)
 
 
-_PORTED = ("chain", "kernel")
+_PORTED = ("chain", "kernel", "ensemble", "tempering", "3d", "cluster",
+           "potts_cb", "potts_cluster")
 
 
 def _resolve_device(device) -> torch.device:
@@ -343,13 +470,16 @@ class IsingEngine:
     def __init__(self, cfg: EngineConfig, device=None):
         cfg.validate()
         scen = _scenario(cfg)
-        if scen not in _PORTED:
-            _config_error(f"scenario {scen!r} is not yet ported to PyTorch "
-                          f"(ported: {', '.join(_PORTED)}); use the JAX "
-                          "package's repro.api for it")
+        if scen not in _PORTED or cfg.topology == "mesh":
+            where = " on a mesh" if cfg.topology == "mesh" else ""
+            _config_error(f"scenario {scen!r}{where} is not yet ported to "
+                          f"PyTorch (ported, on one device: "
+                          f"{', '.join(_PORTED)}); use the JAX package's "
+                          "repro.api for it")
         self.cfg = cfg
         self.device = _resolve_device(device)
         self._dtype = L.torch_dtype(cfg.dtype)
+        self._chunk_engines: dict = {}
 
     def _scenario(self) -> str:
         return _scenario(self.cfg)
@@ -365,14 +495,86 @@ class IsingEngine:
     def _auto_hot(self, beta: float) -> bool:
         if self.cfg.hot is not None:
             return self.cfg.hot
-        return beta < 1.0 / obs.critical_temperature()
+        if self.cfg.model == "potts":
+            beta_c = potts_state.beta_c(self.cfg.resolved_q())
+        else:
+            beta_c = (I3.BETA_C_3D if self.cfg.dims == 3
+                      else 1.0 / obs.critical_temperature())
+        return beta < beta_c  # hot start in the disordered phase
+
+    # ------------------------------------------------------------------
+    # State initialization
+    # ------------------------------------------------------------------
 
     def init(self, key) -> torch.Tensor:
-        """Initial compact quads [4, R, C] on the engine's device."""
+        """Initial state on the engine's device (layouts as in
+        :class:`EngineResult`). Replica i starts from ``fold_in(key, i)``,
+        hot or cold per its own beta when ``hot=None``."""
         c = self.cfg
+        dev = self.device
+        scen = self._scenario()
+        if scen.startswith("potts"):
+            return self._init_potts(key)
+        if scen == "3d":
+            n = c.size
+            if self._auto_hot(c.beta):
+                return I3.random_lattice3d(key, n, n, n, self._dtype, dev)
+            return I3.cold_lattice3d(n, n, n, self._dtype, dev)
+        if c.betas:
+            return torch.stack([
+                sampler.init_state(jr.fold_in(key, i), c.size,
+                                   c.resolved_width(), self._dtype,
+                                   hot=self._auto_hot(b), device=dev)
+                for i, b in enumerate(c.betas)])
         return sampler.init_state(key, c.size, c.resolved_width(),
                                   self._dtype, hot=self._auto_hot(c.beta),
-                                  device=self.device)
+                                  device=dev)
+
+    def _init_potts(self, key) -> torch.Tensor:
+        """Potts colour states: [H, W] int32, or [R, H, W] for ensembles."""
+        c = self.cfg
+        q = c.resolved_q()
+        h, w = c.size, c.resolved_width()
+
+        def one(k, beta):
+            if self._auto_hot(beta):
+                return potts_state.random_state(k, h, w, q, self.device)
+            return potts_state.cold_state(h, w, self.device)
+
+        if c.betas:
+            return torch.stack([one(jr.fold_in(key, i), b)
+                                for i, b in enumerate(c.betas)])
+        return one(key, c.beta)
+
+    # ------------------------------------------------------------------
+    # Runners
+    # ------------------------------------------------------------------
+
+    def _static_arg(self):
+        """The sweep argument of a scalar-beta chain: beta itself, or the
+        host u24 bond threshold for cluster dynamics."""
+        c = self.cfg
+        if c.algorithm == "metropolis":
+            return c.beta
+        if c.model == "potts":
+            return potts_bonds.bond_threshold_u24(c.beta)
+        return cbonds.bond_threshold_u24(c.beta)
+
+    def _chain_loop(self, state, key, one_sweep, one_sweep_measured, arg):
+        """``cfg.n_sweeps`` sweeps of one chain, or of every replica of a
+        stack under a key batch; measured runs keep the (m, E) series on
+        the device and move it to the host once ([T] or [R, T])."""
+        c = self.cfg
+        if not c.measure:
+            for step in range(c.n_sweeps):
+                state = one_sweep(state, key, arg, step)
+            return state, None, None
+        ms, es = [], []
+        for step in range(c.n_sweeps):
+            state, (m, e) = one_sweep_measured(state, key, arg, step)
+            ms.append(m)
+            es.append(e)
+        return state, torch.stack(ms, -1).cpu(), torch.stack(es, -1).cpu()
 
     def _run_kernel(self, state, key):
         """Kernel-backend chain: the lattice stays blocked through the run,
@@ -396,12 +598,34 @@ class IsingEngine:
             ms[step], es[step] = measure.blocked_stats(qb)
         return kops._unblock_quads(qb), ms.cpu(), es.cpu()
 
+    def _run_tempering(self, state, key) -> EngineResult:
+        c = self.cfg
+        if c.n_sweeps % c.exchange_every:
+            _config_error(f"n_sweeps={c.n_sweeps} must be a multiple of "
+                          f"exchange_every={c.exchange_every} for tempering")
+        tcfg = pt.TemperingConfig(
+            betas=c.betas, n_rounds=c.n_sweeps // c.exchange_every,
+            exchange_every=c.exchange_every,
+            block_size=c.resolved_block_size(), accept=c.accept,
+            dtype=c.dtype)
+        final, ms, frac = pt.run_tempering(key, c.size, tcfg,
+                                           init_replicas=state)
+        return EngineResult(final, ms.T, None,
+                            extra={"swap_fraction": frac, "betas": c.betas})
+
+    # ------------------------------------------------------------------
+    # Public entry points
+    # ------------------------------------------------------------------
+
     def run(self, state: torch.Tensor, key) -> EngineResult:
         """Advance ``state`` by ``cfg.n_sweeps`` sweeps under chain ``key``.
         ``state`` itself is left as it was."""
         c = self.cfg
         state = state.to(self.device)
-        if self._scenario() == "chain":
+        scen = self._scenario()
+        if scen == "tempering":
+            return self._run_tempering(state, key)
+        if scen == "chain":
             if c.measure:
                 final, ms, es = sampler.run_chain(state, key,
                                                   self._chain_cfg())
@@ -409,8 +633,26 @@ class IsingEngine:
                                     self._series_moments(ms, es))
             return EngineResult(sampler.run_sweeps(state, key,
                                                    self._chain_cfg()))
-        final, ms, es = self._run_kernel(state, key)
-        return EngineResult(final, ms, es, self._series_moments(ms, es))
+        if scen == "kernel":
+            final, ms, es = self._run_kernel(state, key)
+            return EngineResult(final, ms, es, self._series_moments(ms, es))
+        one_sweep, one_sweep_measured, rep_args = replica_sweep_fns(c)
+        pre, post = ((L.from_quads, L.to_quads) if scen == "cluster"
+                     else (None, None))
+        if c.betas:
+            # the replica axis leads: replica i is the chain keyed
+            # fold_in(key, i) at betas[i], all stepped together
+            key = [jr.fold_in(key, i) for i in range(len(c.betas))]
+            arg = rep_args(c.betas, self.device)
+            extra = {"betas": c.betas}
+        else:
+            arg = self._static_arg()
+            extra = {}
+        final, ms, es = self._chain_loop(pre(state) if pre else state, key,
+                                         one_sweep, one_sweep_measured, arg)
+        final = post(final) if post else final
+        return EngineResult(final, ms, es, self._series_moments(ms, es),
+                            extra)
 
     def _series_moments(self, ms, es) -> Optional[dict]:
         """Moments from the per-sweep series; None when unmeasured."""
@@ -423,10 +665,14 @@ class IsingEngine:
                    n_sweeps: int) -> torch.Tensor:
         """Measurement-free chunk of ``n_sweeps`` sweeps; returns the new
         state. The sweep counter restarts at 0, as in the reference."""
-        sub = IsingEngine(dataclasses.replace(self.cfg, n_sweeps=n_sweeps,
-                                              measure=False),
-                          device=self.device)
-        return sub.run(state, key).state
+        if self._scenario() == "tempering":
+            _config_error("tempering chunks are not supported; use run() "
+                          "(swap decisions need the measured energies)")
+        if n_sweeps not in self._chunk_engines:
+            self._chunk_engines[n_sweeps] = IsingEngine(
+                dataclasses.replace(self.cfg, n_sweeps=n_sweeps,
+                                    measure=False), device=self.device)
+        return self._chunk_engines[n_sweeps].run(state, key).state
 
     def simulate(self, seed: int = 0) -> EngineResult:
         """One-call convenience: split seed into init/chain keys and run."""
@@ -434,15 +680,53 @@ class IsingEngine:
         return self.run(self.init(k_init), k_chain)
 
     def magnetization(self, state: torch.Tensor) -> float:
-        """Global mean spin of the state (host scalar)."""
-        return float(torch.mean(state.float()))
+        """Global mean spin of any state layout (host scalar)."""
+        return float(measure.per_spin(torch.sum(state.float()),
+                                      state.numel()))
 
     def state_template(self) -> torch.Tensor:
-        """A ``meta`` tensor with this scenario's state shape and dtype
-        (compact quads [4, R, C]) — no allocation."""
+        """A ``meta`` tensor with this scenario's state shape and dtype —
+        no allocation."""
         c = self.cfg
-        return torch.empty((4, c.size // 2, c.resolved_width() // 2),
-                           dtype=self._dtype, device="meta")
+        scen = self._scenario()
+        dt = torch.int32 if scen.startswith("potts") else self._dtype
+        if scen == "3d":
+            shape = (c.size,) * 3
+        elif scen.startswith("potts"):
+            shape = (c.size, c.resolved_width())
+            if c.betas:
+                shape = (c.n_replicas(),) + shape
+        elif c.betas:   # ensemble / tempering / multi-beta cluster: quads
+            shape = (c.n_replicas(), 4, c.size // 2,
+                     c.resolved_width() // 2)
+        else:           # chain / kernel / cluster: compact quads
+            shape = (4, c.size // 2, c.resolved_width() // 2)
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    def phase_curve(self, key, burnin: int = 0,
+                    full_stats: bool = False) -> list:
+        """Phase-diagram scan: run the beta ensemble once and reduce each
+        replica's (m, E) series to the paper's Fig.-4 statistics
+        (``full_stats`` adds chi, C and the autocorrelation time)."""
+        c = self.cfg
+        if not c.betas or c.ensemble != "independent":
+            _config_error("phase_curve needs an independent-replica betas "
+                          "ensemble")
+        k_init, k_chain = jr.split(key)
+        res = self.run(self.init(k_init), k_chain)
+        rows = []
+        n_spins = (c.size ** 3 if c.dims == 3
+                   else c.size * c.resolved_width())
+        for i, beta in enumerate(c.betas):
+            stats = obs.chain_statistics(
+                res.magnetization[i].numpy(), res.energy[i].numpy(), burnin,
+                beta=(beta if full_stats else 0.0),
+                n_spins=(n_spins if full_stats else 0))
+            stats["T"] = 1.0 / beta
+            stats["beta"] = beta
+            stats["size"] = c.size
+            rows.append(stats)
+        return rows
 
 
 def _scenario(c: EngineConfig) -> str:

@@ -3,15 +3,19 @@
 The JAX package's arrays reach this module as numpy arrays
 (``np.asarray(jax_array)``); nothing here imports JAX. Conversions:
 
-* lattices (quads ``[4, R, C]``, blocked quads ``[4, mr, mc, bs, bs]``,
-  full ``[H, W]``) in float32 or bfloat16 — bfloat16 crosses through a
-  ``uint16`` view, because ``torch.from_numpy`` rejects
-  ``ml_dtypes.bfloat16``;
+* lattices of any layout — quads ``[4, R, C]``, blocked quads
+  ``[4, mr, mc, bs, bs]``, full ``[H, W]``, replica stacks
+  ``[R, 4, r, c]``, the 3-D cube ``[D, H, W]`` — in float32 or bfloat16
+  (bfloat16 crosses through a ``uint16`` view, because
+  ``torch.from_numpy`` rejects ``ml_dtypes.bfloat16``), and int32 Potts
+  colours ``[H, W]`` / ``[R, H, W]`` and cluster labels as they are;
 * uint32 random bits become the port's int32 tensors holding the same bit
   pattern (:func:`bits_to_torch`): PyTorch has no ``+``, ``<<``, ``>>`` or
   ``<`` for ``torch.uint32`` on the CPU, and the kernels read 4-byte words
   (arithmetic on the values happens in int64 lanes inside
   :mod:`repro_torch.random`);
+* uint32 thresholds (u24 bond and acceptance tables) become int64 tensors
+  holding the same values (:func:`thresholds_to_torch`);
 * uint32 key data becomes the port's host key, a pair of Python ints.
 """
 from __future__ import annotations
@@ -57,6 +61,17 @@ def bits_to_torch(bits, device="cpu") -> torch.Tensor:
 def bits_to_numpy(t: torch.Tensor) -> np.ndarray:
     """The port's int32 bit pattern -> uint32 numpy bits."""
     return t.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def thresholds_to_torch(t, device="cpu") -> torch.Tensor:
+    """uint32 thresholds (any shape) -> int64 tensor with the same values."""
+    a = np.asarray(t, dtype=np.uint32).astype(np.int64)
+    return torch.from_numpy(a).to(device)
+
+
+def thresholds_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """The port's int64 thresholds -> uint32 numpy values."""
+    return t.detach().cpu().numpy().astype(np.uint32)
 
 
 def key_from_numpy(key_data) -> tuple:

@@ -78,17 +78,17 @@ def _bmm_t(k, x):        # per-block k @ x
 def default_edges(xb: torch.Tensor, side: str) -> torch.Tensor:
     """Edge line each block borrows from its ``side`` neighbour (torus).
 
-    xb: [mr, mc, bs, bs] blocked quad. Returns [mr, mc, bs]: e.g. for
-    side="north", entry (r, c) is row bs-1 of block (r-1, c).
+    xb: [..., mr, mc, bs, bs] blocked quad. Returns [..., mr, mc, bs]: e.g.
+    for side="north", entry (r, c) is row bs-1 of block (r-1, c).
     """
     if side == "north":
-        return torch.roll(xb[:, :, -1, :], 1, 0)
+        return torch.roll(xb[..., -1, :], 1, -3)
     if side == "south":
-        return torch.roll(xb[:, :, 0, :], -1, 0)
+        return torch.roll(xb[..., 0, :], -1, -3)
     if side == "west":
-        return torch.roll(xb[:, :, :, -1], 1, 1)
+        return torch.roll(xb[..., :, -1], 1, -2)
     if side == "east":
-        return torch.roll(xb[:, :, :, 0], -1, 1)
+        return torch.roll(xb[..., :, 0], -1, -2)
     raise ValueError(side)
 
 
@@ -107,15 +107,15 @@ def edge_lines(a, b, c, d, color: int, edges=default_edges):
 
 
 def nn_black(a, b, c, d, kh, edges=default_edges):
-    """nn sums for the black quads (A, D); inputs are [mr, mc, bs, bs]."""
+    """nn sums for the black quads (A, D); inputs are [..., mr, mc, bs, bs]."""
     kht = kh.T
     row0, col0, row1, col1 = edge_lines(a, b, c, d, 0, edges)
     nn_a = _bmm(b, kh) + _bmm_t(kht, c)
-    nn_a[:, :, :, 0] += col0    # west col of B
-    nn_a[:, :, 0, :] += row0    # north row of C
+    nn_a[..., :, 0] += col0    # west col of B
+    nn_a[..., 0, :] += row0    # north row of C
     nn_d = _bmm_t(kh, b) + _bmm(c, kht)
-    nn_d[:, :, -1, :] += row1   # south row of B
-    nn_d[:, :, :, -1] += col1   # east col of C
+    nn_d[..., -1, :] += row1   # south row of B
+    nn_d[..., :, -1] += col1   # east col of C
     return nn_a, nn_d
 
 
@@ -124,11 +124,11 @@ def nn_white(a, b, c, d, kh, edges=default_edges):
     kht = kh.T
     row0, col0, row1, col1 = edge_lines(a, b, c, d, 1, edges)
     nn_b = _bmm(a, kht) + _bmm_t(kht, d)
-    nn_b[:, :, :, -1] += col0   # east col of A
-    nn_b[:, :, 0, :] += row0    # north row of D
+    nn_b[..., :, -1] += col0   # east col of A
+    nn_b[..., 0, :] += row0    # north row of D
     nn_c = _bmm_t(kh, a) + _bmm(d, kh)
-    nn_c[:, :, -1, :] += row1   # south row of A
-    nn_c[:, :, :, 0] += col1    # west col of D
+    nn_c[..., -1, :] += row1   # south row of A
+    nn_c[..., :, 0] += col1    # west col of D
     return nn_b, nn_c
 
 
@@ -138,15 +138,18 @@ def update_color_compact(quads, probs0, probs1, beta, color: int,
                          return_stats: bool = False):
     """Paper Algorithm 2: update one colour of the compact representation.
 
-    quads:  [4, R, C] parity sub-lattices.
-    probs0: [R, C] uniforms for the colour's first quad (A if black, else B).
-    probs1: [R, C] uniforms for the second quad (D if black, C else).
+    quads:  [4, R, C] parity sub-lattices, or [N, 4, R, C] for N replicas
+            (then ``beta`` is a number or an [N] tensor).
+    probs0: [..., R, C] uniforms for the colour's first quad (A if black,
+            else B).
+    probs1: [..., R, C] uniforms for the second quad (D if black, C else).
     return_stats: also return ``(new0, new1, nn0, nn1)`` (blocked), which
         the measurement plane turns into the bond energy.
-    Returns a new [4, R, C] stack.
+    Returns a new stack of ``quads``' shape.
     """
     kh = L.kernel_compact(block_size, quads.dtype, quads.device)
-    a, b, c, d = (L.block(quads[i], block_size) for i in range(4))
+    q = quads.unbind(-3)
+    a, b, c, d = (L.block(x, block_size) for x in q)
     if color == 0:  # black: flip A and D
         nn0, nn1 = nn_black(a, b, c, d, kh, edges)
         s0, s1 = a, d
@@ -158,11 +161,9 @@ def update_color_compact(quads, probs0, probs1, beta, color: int,
     new0 = _flip(s0, nn0.to(s0.dtype), p0, beta, accept, field)
     new1 = _flip(s1, nn1.to(s1.dtype), p1, beta, accept, field)
     if color == 0:
-        out = torch.stack([L.unblock(new0), quads[1], quads[2],
-                           L.unblock(new1)])
+        out = torch.stack([L.unblock(new0), q[1], q[2], L.unblock(new1)], -3)
     else:
-        out = torch.stack([quads[0], L.unblock(new0), L.unblock(new1),
-                           quads[3]])
+        out = torch.stack([q[0], L.unblock(new0), L.unblock(new1), q[3]], -3)
     if return_stats:
         return out, (new0, new1, nn0, nn1)
     return out
@@ -171,12 +172,13 @@ def update_color_compact(quads, probs0, probs1, beta, color: int,
 def sweep_compact(quads, probs, beta, block_size: int = L.MXU_BLOCK,
                   accept: str = "lut", edges=default_edges,
                   field: float = 0.0) -> torch.Tensor:
-    """One full sweep (black then white). probs: [4, R, C] uniforms, laid out
-    as [black0, black1, white0, white1]."""
-    quads = update_color_compact(quads, probs[0], probs[1], beta, 0,
-                                 block_size, accept, edges, field)
-    return update_color_compact(quads, probs[2], probs[3], beta, 1,
-                                block_size, accept, edges, field)
+    """One full sweep (black then white). probs: [..., 4, R, C] uniforms,
+    laid out as [black0, black1, white0, white1]."""
+    p = probs.unbind(-3)
+    quads = update_color_compact(quads, p[0], p[1], beta, 0, block_size,
+                                 accept, edges, field)
+    return update_color_compact(quads, p[2], p[3], beta, 1, block_size,
+                                accept, edges, field)
 
 
 def quad_probs_from_full(probs_black, probs_white) -> torch.Tensor:

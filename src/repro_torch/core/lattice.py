@@ -10,7 +10,8 @@ Three layouts are used throughout the port, as in the JAX package:
                index 3 = sigma_11 (odd  row, odd  col)   "D"  (black)
 * ``blocked``— ``[mr, mc, b, b]`` grid of b x b tiles of a 2-D tensor.
 
-All conversions are exact and round-trip. ``block`` and ``unblock`` return
+Every conversion also takes leading replica axes (``[R, H, W]`` <->
+``[R, 4, H/2, W/2]``, ``[R, mr, mc, b, b]``). All are exact and round-trip. ``block`` and ``unblock`` return
 views where PyTorch can; call ``.contiguous()`` where a kernel needs one.
 """
 from __future__ import annotations
@@ -56,37 +57,40 @@ def cold_lattice(height: int, width: int, dtype=torch.bfloat16,
 
 
 def to_quads(full: torch.Tensor) -> torch.Tensor:
-    """[H, W] -> [4, H/2, W/2] compact parity decomposition."""
-    h, w = full.shape
+    """[..., H, W] -> [..., 4, H/2, W/2] compact parity decomposition."""
+    h, w = full.shape[-2:]
     if h % 2 or w % 2:
         raise ValueError(f"lattice dims must be even, got {tuple(full.shape)}")
-    return torch.stack([full[0::2, 0::2], full[0::2, 1::2],
-                        full[1::2, 0::2], full[1::2, 1::2]])
+    return torch.stack([full[..., 0::2, 0::2], full[..., 0::2, 1::2],
+                        full[..., 1::2, 0::2], full[..., 1::2, 1::2]], -3)
 
 
 def from_quads(quads: torch.Tensor) -> torch.Tensor:
-    """[4, R, C] -> [2R, 2C]; inverse of :func:`to_quads`."""
-    _, r, c = quads.shape
-    full = quads.new_zeros((2 * r, 2 * c))
-    full[0::2, 0::2] = quads[Q00]
-    full[0::2, 1::2] = quads[Q01]
-    full[1::2, 0::2] = quads[Q10]
-    full[1::2, 1::2] = quads[Q11]
+    """[..., 4, R, C] -> [..., 2R, 2C]; inverse of :func:`to_quads`."""
+    r, c = quads.shape[-2:]
+    q = quads.unbind(-3)
+    full = quads.new_zeros(quads.shape[:-3] + (2 * r, 2 * c))
+    full[..., 0::2, 0::2] = q[Q00]
+    full[..., 0::2, 1::2] = q[Q01]
+    full[..., 1::2, 0::2] = q[Q10]
+    full[..., 1::2, 1::2] = q[Q11]
     return full
 
 
 def block(x: torch.Tensor, bs: int = MXU_BLOCK) -> torch.Tensor:
-    """[R, C] -> [R/bs, C/bs, bs, bs] tile grid."""
-    r, c = x.shape
+    """[..., R, C] -> [..., R/bs, C/bs, bs, bs] tile grid."""
+    r, c = x.shape[-2:]
     if r % bs or c % bs:
         raise ValueError(f"{tuple(x.shape)} not divisible by block {bs}")
-    return x.reshape(r // bs, bs, c // bs, bs).permute(0, 2, 1, 3)
+    return x.reshape(x.shape[:-2] + (r // bs, bs, c // bs, bs)).transpose(
+        -3, -2)
 
 
 def unblock(xb: torch.Tensor) -> torch.Tensor:
-    """[mr, mc, bs, bs] -> [mr*bs, mc*bs]; inverse of :func:`block`."""
-    mr, mc, bs, _ = xb.shape
-    return xb.permute(0, 2, 1, 3).reshape(mr * bs, mc * bs)
+    """[..., mr, mc, bs, bs] -> [..., mr*bs, mc*bs]; inverse of
+    :func:`block`."""
+    mr, mc, bs, _ = xb.shape[-4:]
+    return xb.transpose(-3, -2).reshape(xb.shape[:-4] + (mr * bs, mc * bs))
 
 
 def kernel_naive(n: int, dtype=torch.bfloat16, device="cpu") -> torch.Tensor:

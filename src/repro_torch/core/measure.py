@@ -16,6 +16,7 @@ does the f32 operations in the reference's order.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -29,9 +30,25 @@ from repro_torch.core import lattice as L
 # ---------------------------------------------------------------------------
 
 
-def _f32(x: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(float(np.float32(x)), dtype=torch.float32,
-                        device=like.device)
+def per_spin(total: torch.Tensor, n_spins: int) -> torch.Tensor:
+    """``total / n_spins`` as the reference's compiled loops compute it: XLA
+    rewrites a division by a constant into a product with the constant's
+    f32 reciprocal (the same value when ``n_spins`` is a power of two)."""
+    return total * float(np.float32(1.0) / np.float32(n_spins))
+
+
+def site_sum(x: torch.Tensor, rank: int) -> torch.Tensor:
+    """Sum over the last ``rank`` dims: per replica of an [N, ...] stack,
+    all of ``x`` for one chain."""
+    if x.dim() == rank:
+        return torch.sum(x)
+    return torch.sum(x, dim=tuple(range(-rank, 0)))
+
+
+def site_mean(x: torch.Tensor, rank: int) -> torch.Tensor:
+    """f32 mean of the last ``rank`` dims (per replica), as :func:`per_spin`
+    divides."""
+    return per_spin(site_sum(x.float(), rank), math.prod(x.shape[-rank:]))
 
 
 def magnetization_mean(quads, n_spins: int) -> torch.Tensor:
@@ -41,18 +58,17 @@ def magnetization_mean(quads, n_spins: int) -> torch.Tensor:
         s = 0
         for q in quads:
             s = s + torch.sum(q.float())
-        first = quads[0]
     else:
         s = torch.sum(quads.float())
-        first = quads
-    return s / _f32(n_spins, first)
+    return per_spin(s, n_spins)
 
 
 def bond_energy_from_nn(s0, s1, nn0, nn1, n_spins: int) -> torch.Tensor:
-    """E per spin from one colour's post-flip spins and their nn sums."""
-    local = (torch.sum(s0.float() * nn0.float())
-             + torch.sum(s1.float() * nn1.float()))
-    return -local / _f32(n_spins, s0)
+    """E per spin from one colour's post-flip spins and their nn sums
+    (blocked [..., mr, mc, bs, bs]; per replica for a stack)."""
+    local = (site_sum(s0.float() * nn0.float(), 4)
+             + site_sum(s1.float() * nn1.float(), 4))
+    return per_spin(-local, n_spins)
 
 
 def blocked_stats(qb, n_spins: Optional[int] = None, kh=None,
@@ -76,15 +92,17 @@ def sweep_compact_measured(quads, probs, beta, block_size: int = L.MXU_BLOCK,
                            accept: str = "lut", edges=cb.default_edges,
                            field: float = 0.0) -> tuple:
     """One full compact sweep that also streams (m, E/spin), reusing the
-    white half-update's nn tensors for the energy."""
-    quads = cb.update_color_compact(quads, probs[0], probs[1], beta, 0,
-                                    block_size, accept, edges, field)
+    white half-update's nn tensors for the energy. Quads [..., 4, R, C]
+    give per-replica (m, E)."""
+    p = probs.unbind(-3)
+    quads = cb.update_color_compact(quads, p[0], p[1], beta, 0, block_size,
+                                    accept, edges, field)
     quads, (new0, new1, nn0, nn1) = cb.update_color_compact(
-        quads, probs[2], probs[3], beta, 1, block_size, accept, edges,
-        field, return_stats=True)
-    n_spins = quads.numel()
-    m = magnetization_mean(quads, n_spins)
-    e = bond_energy_from_nn(new0, new1, nn0, nn1, n_spins)
+        quads, p[2], p[3], beta, 1, block_size, accept, edges, field,
+        return_stats=True)
+    m = site_mean(quads, 3)
+    e = bond_energy_from_nn(new0, new1, nn0, nn1,
+                            math.prod(quads.shape[-3:]))
     return quads, (m, e)
 
 

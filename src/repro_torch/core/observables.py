@@ -12,19 +12,30 @@ import numpy as np
 import torch
 
 from repro_torch.core import lattice as L
+from repro_torch.core.measure import per_spin, site_mean
 
 
 def magnetization(quads: torch.Tensor) -> torch.Tensor:
-    """Mean spin  m = (1/N) sum_i sigma_i  (computed in f32)."""
-    return torch.mean(quads.float())
+    """Mean spin  m = (1/N) sum_i sigma_i  (computed in f32; the sum times
+    the f32 reciprocal of the count, as the reference's compiled code)."""
+    return per_spin(torch.sum(quads.float()), quads.numel())
 
 
 def energy_per_spin(quads: torch.Tensor) -> torch.Tensor:
-    """E/N = -(1/N) sum_<ij> sigma_i sigma_j  (J=1, each bond counted once)."""
+    """E/N = -(1/N) sum_<ij> sigma_i sigma_j  (J=1, each bond counted once)
+    of quads [..., 4, R, C], per replica."""
     full = L.from_quads(quads).float()
-    right = torch.roll(full, -1, 1)
-    down = torch.roll(full, -1, 0)
-    return -torch.mean(full * (right + down))
+    right = torch.roll(full, -1, -1)
+    down = torch.roll(full, -1, -2)
+    return -site_mean(full * (right + down), 2)
+
+
+def energy_per_spin3d(full: torch.Tensor) -> torch.Tensor:
+    """E/N for a [..., D, H, W] spin cube (J=1, each bond counted once),
+    per replica."""
+    f = full.float()
+    bonds = sum(torch.roll(f, -1, axis) for axis in (-3, -2, -1))
+    return -site_mean(f * bonds, 3)
 
 
 def binder_parameter(m2, m4):

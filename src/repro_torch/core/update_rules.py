@@ -20,6 +20,14 @@ Rules: ``metropolis_lut`` (exact 5-entry table), ``metropolis_exp`` (the
 paper's per-site ``exp``; same table on the bits path) and ``heat_bath``
 (Glauber). Aliases ``lut``, ``exp``, ``metropolis`` and ``glauber`` are
 accepted by :func:`get_rule`.
+
+``beta`` is a Python number (one chain: the reference bakes it into its
+compiled loop) or an f32 tensor (replica couplings: the reference traces
+them); an [N] tensor gives replica i of an ``[N, ...]`` lattice its own
+beta (:func:`per_replica`, tables looked up by :func:`lookup`). Every f32
+``exp`` / ``sigmoid`` on data is XLA:CPU's
+(:mod:`repro_torch.core.xla_f32`); a table whose inputs are all literals
+(:func:`exp_table` of a Python-number beta) is folded at compile time.
 """
 from __future__ import annotations
 
@@ -29,6 +37,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from repro_torch.core import xla_f32
 
 _INV_2_24 = 1.0 / float(1 << 24)
 
@@ -52,6 +62,23 @@ def _select5(x: torch.Tensor, t) -> torch.Tensor:
         torch.where(x <= -1.0, t[1],
                     torch.where(x <= 1.0, t[2],
                                 torch.where(x <= 3.0, t[3], t[4]))))
+
+
+def per_replica(v, x: torch.Tensor):
+    """A per-replica value (an [N] tensor) shaped to broadcast against
+    ``x`` [N, ...]; numbers and 0-d tensors are returned as they are."""
+    if isinstance(v, torch.Tensor) and v.dim():
+        return v.reshape(tuple(v.shape) + (1,) * (x.dim() - v.dim()))
+    return v
+
+
+def lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` for a [K] table, or per replica for tables
+    [N, 1, ..., K] (from a :func:`per_replica` beta) against idx [N, ...]."""
+    if table.dim() == 1:
+        return table[idx]
+    return torch.gather(table.expand(idx.shape[:-1] + table.shape[-1:]), -1,
+                        idx)
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +126,13 @@ def rule_names() -> tuple:
     return tuple(sorted(_REGISTRY))
 
 
+def thresholds_u24(probs_f32) -> list:
+    """ceil(p * 2^24) per f32 probability, capped at 2^24: ``u24 < t``
+    decides as ``u24 / 2^24 < p`` does (p * 2^24 is exact in f64)."""
+    return [min(math.ceil(float(np.float32(p)) * (1 << 24)), 1 << 24)
+            for p in probs_f32]
+
+
 def kernel_table(rule: str, beta: float) -> np.ndarray:
     """The five f32 table values a rule's kernel form compares against:
     f64 ``math.exp`` rounded once to f32."""
@@ -110,12 +144,32 @@ def kernel_table(rule: str, beta: float) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+def beta_f32(beta, device="cpu") -> torch.Tensor:
+    """beta as an f32 scalar tensor on ``device``."""
+    if isinstance(beta, torch.Tensor):
+        return beta.to(device=device, dtype=torch.float32)
+    return torch.tensor(float(beta), dtype=torch.float32, device=device)
+
+
+def exp_table(beta, coef: float, x_values, device="cpu") -> torch.Tensor:
+    """f32 ``exp((coef * beta) * x)`` over a few table points ``x_values``.
+
+    A tensor beta goes through XLA:CPU's compiled ``exp``, as the
+    reference's replica ensembles trace it. A Python-number beta makes
+    every input a literal in the reference's compiled loop, and XLA folds
+    the table at compile time: the f32 products, then ``exp`` in f64
+    rounded once."""
+    if isinstance(beta, torch.Tensor):
+        x = torch.tensor(x_values, dtype=torch.float32, device=device)
+        return xla_f32.exp_f32(coef * beta_f32(beta, device) * x)
+    arg = (np.float32(coef) * np.float32(beta)) * np.float32(x_values)
+    return torch.from_numpy(xla_f32.exp_f32_folded_np(arg)).to(device)
+
+
 def acceptance_table(beta, dtype=torch.float32, device="cpu") -> torch.Tensor:
-    """acc[k] = exp(-2*beta*x) for x = 2k-4, k=0..4 (x = sigma*nn), an f32
-    ``exp`` cast to ``dtype``."""
-    x = torch.arange(-4.0, 5.0, 2.0, dtype=torch.float32, device=device)
-    b = torch.tensor(float(beta), dtype=torch.float32, device=device)
-    return torch.exp(-2.0 * b * x).to(dtype)
+    """acc[k] = exp(-2*beta*x) for x = 2k-4, k=0..4 (x = sigma*nn), in f32
+    (:func:`exp_table`), cast to ``dtype``."""
+    return exp_table(beta, -2.0, _X_VALUES, device).to(dtype)
 
 
 def metropolis_table_f32(beta) -> list:
@@ -136,17 +190,18 @@ def metropolis_acceptance(nn: torch.Tensor, sigma: torch.Tensor, beta,
     A field h forces the per-site exp path: acceptance is
     exp(-2*beta*(x + s*h)) with x = sigma*nn.
     """
+    beta = per_replica(beta, sigma)
     x = nn * sigma  # in {-4,-2,0,2,4}, exact in bf16
-    b = torch.tensor(float(beta), dtype=torch.float32, device=sigma.device)
+    b = beta_f32(beta, sigma.device)
     if field:
         arg = x.float() + sigma.float() * np.float32(field)
-        return torch.exp(-2.0 * b * arg).to(sigma.dtype)
+        return xla_f32.exp_f32(-2.0 * b * arg).to(sigma.dtype)
     if method == "exp":
-        return torch.exp(-2.0 * b * x.float()).to(sigma.dtype)
+        return xla_f32.exp_f32(-2.0 * b * x.float()).to(sigma.dtype)
     if method == "lut":
         table = acceptance_table(beta, sigma.dtype, sigma.device)
         idx = ((x.float() + 4.0) * 0.5).to(torch.int64)
-        return table[idx]
+        return lookup(table, idx)
     raise ValueError(f"unknown acceptance method {method!r}")
 
 
@@ -190,8 +245,8 @@ def _heat_bath_flip_probs(sigma, nn, probs, beta, field: float = 0.0):
     arg = nn.float()
     if field:
         arg = arg + np.float32(field)
-    b = torch.tensor(float(beta), dtype=torch.float32, device=sigma.device)
-    p_up = torch.sigmoid(2.0 * b * arg).to(sigma.dtype)
+    b = beta_f32(per_replica(beta, sigma), sigma.device)
+    p_up = xla_f32.sigmoid_f32(2.0 * b * arg).to(sigma.dtype)
     up = probs.to(p_up.dtype) < p_up
     one = torch.ones((), dtype=sigma.dtype, device=sigma.device)
     return torch.where(up, one, -one)

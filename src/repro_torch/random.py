@@ -7,11 +7,17 @@ module reproduces the parts it uses:
 * keys are host-side pairs of 32-bit words ``(k0, k1)`` held as Python
   ints — ``PRNGKey``, ``fold_in`` and ``split`` run on the host, so a sweep
   loop that folds in its step never waits for the device;
-* ``bits``, ``uniform`` and ``bernoulli`` run on the caller's device.
-  Element ``n`` of a draw of shape ``S`` is ``threefry(key, (hi, lo))`` of
-  its flat row-major index ``n = hi * 2**32 + lo``, and a 32-bit draw is
-  ``out0 ^ out1``. Because every element is addressed by its counter, the
-  draw is generated in chunks without changing a bit.
+* ``bits``, ``uniform``, ``bernoulli`` and ``randint`` run on the caller's
+  device. Element ``n`` of a draw of shape ``S`` is ``threefry(key, (hi,
+  lo))`` of its flat row-major index ``n = hi * 2**32 + lo``, and a 32-bit
+  draw is ``out0 ^ out1``. Because every element is addressed by its
+  counter, the draw is generated in chunks without changing a bit;
+* ``fold_in_bits`` is ``fold_in`` over a tensor of counters: the last key
+  word of ``fold_in(key, c)`` for every element ``c``;
+* a *key batch* is a list of keys, one per replica. ``fold_in`` maps over
+  it on the host, and every device draw under it gains a leading replica
+  axis whose row ``i`` is bitwise the draw under key ``i`` alone, so R
+  replicas are drawn in one pass.
 
 The uint32 arithmetic runs in int64 lanes masked to 32 bits: PyTorch has
 no ``+``, ``<<``, ``>>`` or ``<`` for ``torch.uint32`` on the CPU. Raw
@@ -79,9 +85,25 @@ def key_data(key: Key) -> tuple:
     return (int(key[0]) & _M32, int(key[1]) & _M32)
 
 
-def fold_in(key: Key, data: int) -> Key:
-    """``jax.random.fold_in``: threefry of the counter pair ``(0, data)``."""
+def is_batch(key) -> bool:
+    """True for a key batch (a list of keys)."""
+    return isinstance(key, list)
+
+
+def fold_in(key, data: int):
+    """``jax.random.fold_in``: threefry of the counter pair ``(0, data)``
+    (for every key of a batch)."""
+    if is_batch(key):
+        return [fold_in(k, data) for k in key]
     return _threefry_int(key[0], key[1], 0, int(data) & _M32)
+
+
+def shared(key, counters: torch.Tensor) -> torch.Tensor:
+    """``counters`` for :func:`fold_in_bits` under ``key``: one row per key
+    of a batch (a view), or as they are under a single key."""
+    if is_batch(key):
+        return counters.expand((len(key),) + tuple(counters.shape))
+    return counters
 
 
 def split(key: Key, num: int = 2) -> list:
@@ -100,12 +122,25 @@ def _rotl_(x: torch.Tensor, r: int) -> torch.Tensor:
     return x.bitwise_left_shift_(r).bitwise_and_(_M32).bitwise_or_(hi)
 
 
-def threefry2x32(key: Key, x0: torch.Tensor, x1: torch.Tensor) -> tuple:
-    """threefry2x32 of int64 counter lanes (values in [0, 2**32)).
+def _schedule(key, device) -> tuple:
+    """The three key-schedule words: ints, or [R, 1] int64 columns on
+    ``device`` for a key batch (copied without a host sync)."""
+    if not is_batch(key):
+        k0, k1 = key_data(key)
+        return (k0, k1, k0 ^ k1 ^ _PARITY)
+    rows = [(a, b, a ^ b ^ _PARITY) for a, b in map(key_data, key)]
+    t = torch.tensor(rows, dtype=torch.int64)
+    if torch.device(device).type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return tuple(t[:, j:j + 1] for j in range(3))
+
+
+def threefry2x32(key, x0: torch.Tensor, x1: torch.Tensor) -> tuple:
+    """threefry2x32 of int64 counter lanes (values in [0, 2**32)); under a
+    key batch the lanes are [R, n], row i under key i.
 
     Updates ``x0`` and ``x1`` in place and returns them."""
-    k0, k1 = key_data(key)
-    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    ks = _schedule(key, x0.device)
     x0.add_(ks[0]).bitwise_and_(_M32)
     x1.add_(ks[1]).bitwise_and_(_M32)
     for i in range(5):
@@ -117,19 +152,31 @@ def threefry2x32(key: Key, x0: torch.Tensor, x1: torch.Tensor) -> tuple:
     return x0, x1
 
 
-def _bits_lanes(key: Key, start: int, stop: int,
-                device) -> torch.Tensor:
-    """32-bit draws for flat counters [start, stop) as int64 lanes."""
+def _bits_lanes(key, start: int, stop: int, device) -> torch.Tensor:
+    """32-bit draws for flat counters [start, stop) as int64 lanes, [n] or
+    [R, n] under a key batch."""
     n = torch.arange(start, stop, dtype=torch.int64, device=device)
+    if is_batch(key):
+        n = n.expand(len(key), stop - start).clone()
     hi = n >> 32
     lo = n.bitwise_and_(_M32)
     x0, x1 = threefry2x32(key, hi, lo)
     return x0.bitwise_xor_(x1)
 
 
-def _chunks(total: int):
-    for start in range(0, total, CHUNK):
-        yield start, min(start + CHUNK, total)
+def _rows(key) -> int:
+    return len(key) if is_batch(key) else 1
+
+
+def _chunks(total: int, rows: int = 1):
+    """[start, stop) ranges of the per-row counter, ``CHUNK`` lanes in all."""
+    step = max(1, CHUNK // rows)
+    for start in range(0, total, step):
+        yield start, min(start + step, total)
+
+
+def _lead(key) -> tuple:
+    return (len(key),) if is_batch(key) else ()
 
 
 def _as_int32(v: torch.Tensor) -> torch.Tensor:
@@ -138,19 +185,23 @@ def _as_int32(v: torch.Tensor) -> torch.Tensor:
     return v.add_(1 << 31).bitwise_and_(_M32).sub_(1 << 31).to(torch.int32)
 
 
-def bits(key: Key, shape, device="cpu") -> torch.Tensor:
-    """``jax.random.bits(key, shape, uint32)`` as an int32 bit pattern."""
+def bits(key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as an int32 bit pattern
+    (``[R, *shape]`` under a key batch)."""
     shape = tuple(int(s) for s in shape)
     total = math.prod(shape)
-    out = torch.empty(total, dtype=torch.int32, device=device)
-    for start, stop in _chunks(total):
-        out[start:stop] = _as_int32(_bits_lanes(key, start, stop, device))
-    return out.view(shape)
+    out = torch.empty(_lead(key) + (total,), dtype=torch.int32,
+                      device=device)
+    for start, stop in _chunks(total, _rows(key)):
+        out[..., start:stop] = _as_int32(_bits_lanes(key, start, stop,
+                                                     device))
+    return out.view(_lead(key) + shape)
 
 
-def uniform(key: Key, shape, dtype=torch.float32,
+def uniform(key, shape, dtype=torch.float32,
             device="cpu") -> torch.Tensor:
-    """``jax.random.uniform(key, shape, dtype)`` on [0, 1)."""
+    """``jax.random.uniform(key, shape, dtype)`` on [0, 1) (``[R, *shape]``
+    under a key batch)."""
     try:
         rng_bits, nmant, one, itype = _FLOAT_LAYOUT[dtype]
     except KeyError:
@@ -159,17 +210,62 @@ def uniform(key: Key, shape, dtype=torch.float32,
                          ) from None
     shape = tuple(int(s) for s in shape)
     total = math.prod(shape)
-    out = torch.empty(total, dtype=dtype, device=device)
-    for start, stop in _chunks(total):
+    out = torch.empty(_lead(key) + (total,), dtype=dtype, device=device)
+    for start, stop in _chunks(total, _rows(key)):
         v = _bits_lanes(key, start, stop, device)
         if rng_bits < 32:
             v.bitwise_and_((1 << rng_bits) - 1)   # the draw is cut short
         v = (v >> (rng_bits - nmant)).bitwise_or_(one)
-        out[start:stop] = v.to(itype).view(dtype) - 1.0
-    return out.view(shape)
+        out[..., start:stop] = v.to(itype).view(dtype) - 1.0
+    return out.view(_lead(key) + shape)
 
 
-def bernoulli(key: Key, p: float = 0.5, shape=(),
+def bernoulli(key, p: float = 0.5, shape=(),
               device="cpu") -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)``: an f32 uniform below ``p``."""
     return uniform(key, shape, torch.float32, device) < p
+
+
+def randint(key, shape, minval: int, maxval: int,
+            device="cpu") -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, int32)``
+    (``[R, *shape]`` under a key batch).
+
+    Two 32-bit words per element from ``split(key)``, folded into
+    ``[0, span)`` with the reference's uint32 arithmetic, where products
+    and sums wrap at 2**32: ``((hi % span) * m + lo % span) % span`` with
+    ``m = ((2**16 % span)**2 mod 2**32) % span`` (0 once span > 2**16).
+    """
+    if is_batch(key):
+        k1, k2 = (list(ks) for ks in zip(*map(split, key)))
+    else:
+        k1, k2 = split(key)
+    span = (int(maxval) - int(minval)) & _M32 if maxval > minval else 1
+    multiplier = ((((1 << 16) % span) ** 2) & _M32) % span
+    shape = tuple(int(s) for s in shape)
+    total = math.prod(shape)
+    out = torch.empty(_lead(key) + (total,), dtype=torch.int32,
+                      device=device)
+    for start, stop in _chunks(total, _rows(key)):
+        hi = _bits_lanes(k1, start, stop, device).remainder_(span)
+        lo = _bits_lanes(k2, start, stop, device).remainder_(span)
+        off = hi.mul_(multiplier).bitwise_and_(_M32).add_(lo)
+        off = off.bitwise_and_(_M32).remainder_(span).add_(int(minval))
+        out[..., start:stop] = off.to(torch.int32)
+    return out.view(_lead(key) + shape)
+
+
+def fold_in_bits(key, counters: torch.Tensor) -> torch.Tensor:
+    """``fold_in(key, c)[-1]`` for every element ``c`` of an integer tensor
+    (int32 bit patterns, same shape): one threefry pass over the counter
+    pairs ``(0, c)``. Equal counters give equal bits. Under a key batch
+    ``counters`` is ``[R, ...]``, row i hashed under key i
+    (:func:`shared` gives every key the same counters)."""
+    flat = counters.reshape(_lead(key) + (-1,))
+    out = torch.empty(flat.shape, dtype=torch.int32, device=flat.device)
+    for start, stop in _chunks(flat.shape[-1], _rows(key)):
+        x1 = flat[..., start:stop].to(torch.int64).bitwise_and_(_M32)
+        x0 = torch.zeros_like(x1)
+        _, x1 = threefry2x32(key, x0, x1)
+        out[..., start:stop] = _as_int32(x1)
+    return out.view(counters.shape)

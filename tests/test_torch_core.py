@@ -1,6 +1,7 @@
-"""The port's update rules, checkerboard sweeps, measurement plane and
-observables against the JAX package, bitwise where the arithmetic is the
-same, and against the port's own full-lattice oracle."""
+"""The port's XLA f32 functions, update rules, checkerboard sweeps,
+measurement plane and observables against the JAX package, bitwise, and
+against the port's own full-lattice oracle."""
+import functools
 import math
 
 import numpy as np
@@ -21,6 +22,7 @@ from repro_torch.core import lattice as L  # noqa: E402
 from repro_torch.core import measure as M  # noqa: E402
 from repro_torch.core import observables as O  # noqa: E402
 from repro_torch.core import update_rules as R  # noqa: E402
+from repro_torch.core import xla_f32 as XF  # noqa: E402
 
 BETAS = (0.0, 0.1, 0.3, 0.4406868, 0.7, 1.0, 1.5, 2.5)
 DTYPES = [(jnp.bfloat16, torch.bfloat16), (jnp.float32, torch.float32)]
@@ -71,49 +73,136 @@ def test_kernel_tables_match_reference(beta):
                                   np.float32(JR.heat_bath_table_f32(beta)))
 
 
+BETA_GRID = np.linspace(0.0, 3.0, 301)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_literal_tables(dtype_name: str) -> np.ndarray:
+    """JR.acceptance_table at every grid beta as the reference's compiled
+    chain holds it: the beta is a literal inside a jit."""
+    jdt = jnp.dtype(dtype_name)
+    return np.asarray(jax.jit(lambda: jnp.stack(
+        [JR.acceptance_table(float(b), jdt).astype(jnp.float32)
+         for b in BETA_GRID]))())
+
+
 def test_acceptance_table_bf16_matches_everywhere_f32_gap_recorded():
-    """bf16 tables equal JAX's on a fine beta grid; the f32 tables differ by
-    one ulp at some betas (torch.exp vs XLA's exp), which is why f32 chains
-    are held only where the tables agree."""
-    n_f32_diff = 0
-    for beta in np.linspace(0.0, 3.0, 301):
-        np.testing.assert_array_equal(
-            R.acceptance_table(beta, torch.bfloat16).float().numpy(),
-            _np32(JR.acceptance_table(beta, jnp.bfloat16)))
-        a = R.acceptance_table(beta).numpy()
-        b = _np32(JR.acceptance_table(beta))
-        np.testing.assert_allclose(a, b, rtol=2.5e-7, atol=0)
-        n_f32_diff += int((a != b).any())
-    assert n_f32_diff < 301
+    """The acceptance and heat-bath tables equal the reference's at every
+    beta of the grid, f32 and bf16, with no beta skipped: a Python-number
+    beta gives the table the reference's compiled chain folds, a tensor
+    beta the one its traced ensembles compute."""
+    x = np.float32(R._X_VALUES)
+    n_literal_differs = 0
+    for jdt, tdt in DTYPES:
+        literal = _jax_literal_tables(jnp.dtype(jdt).name)
+        for i, beta in enumerate(BETA_GRID):
+            got = R.acceptance_table(float(beta), tdt).float().numpy()
+            np.testing.assert_array_equal(got, literal[i])
+            traced = R.acceptance_table(torch.tensor(beta, dtype=torch.float32),
+                                        tdt).float().numpy()
+            np.testing.assert_array_equal(
+                traced, _np32(JR.acceptance_table(jnp.float32(beta), jdt)))
+            n_literal_differs += int((got != traced).any())
+            b = torch.tensor(beta, dtype=torch.float32)
+            np.testing.assert_array_equal(
+                XF.sigmoid_f32(2.0 * b * torch.from_numpy(x)).numpy(),
+                _np32(jax.nn.sigmoid(2.0 * jnp.float32(beta) * x)))
+    # the folded and the compiled exp part at some betas: both are held
+    assert n_literal_differs > 0
 
 
-def _tables_agree(beta) -> bool:
-    return bool((R.acceptance_table(beta).numpy()
-                 == _np32(JR.acceptance_table(beta))).all())
+def test_exp_sigmoid_log_match_xla_bitwise():
+    """XLA:CPU's f32 exp / sigmoid on 10^6 points of [-88, 88] and beyond,
+    and its log on 10^6 uniforms and positive floats, bit for bit."""
+    x = np.linspace(-88.0, 88.0, 1_000_001, dtype=np.float32)
+    x = np.concatenate([x, np.linspace(-120, 100, 20_001, dtype=np.float32),
+                        np.float32([0.0, -0.0, 1e-40, 88.72, 88.73])])
+    np.testing.assert_array_equal(XF.exp_f32_np(x), _np32(jnp.exp(x)))
+    np.testing.assert_array_equal(XF.sigmoid_f32_np(x),
+                                  _np32(jax.nn.sigmoid(x)))
+    u = np.asarray(jax.random.uniform(jax.random.PRNGKey(7), (1_000_000,)))
+    u = np.maximum(u, np.float32(1e-30))
+    np.testing.assert_array_equal(XF.log_f32_np(u), _np32(jnp.log(u)))
+    rng = np.random.default_rng(12)
+    pos = rng.integers(1, 0x7F800000, 200_000, dtype=np.int64)
+    pos = np.concatenate([pos.astype(np.int32).view(np.float32),
+                          np.float32([0.0, 1e-40, np.inf, 1.0, -1.0])])
+    got, want = XF.log_f32_np(pos), _np32(jnp.log(pos))
+    assert ((got == want) | (np.isnan(got) & np.isnan(want))).all()
+    # the tensor forms are the numpy twins
+    t = torch.from_numpy(x[::97].copy())
+    np.testing.assert_array_equal(XF.exp_f32(t).numpy(),
+                                  XF.exp_f32_np(x[::97]))
+    # torch's own exp is not XLA's: the reason for this module
+    assert (torch.exp(torch.from_numpy(x)).numpy() != _np32(jnp.exp(x))).any()
+
+
+def test_literal_table_decides_where_the_traced_one_differs():
+    """Uniforms placed on the two tables' values: the port's Python-number
+    beta flips as the reference's compiled chain does, a tensor beta as its
+    traced ensembles do, and the two decisions differ."""
+    beta = next(float(b) for b in BETA_GRID
+                if (R.acceptance_table(float(b)).numpy()
+                    != R.acceptance_table(torch.tensor(b)).numpy()).any())
+    lit = R.acceptance_table(beta).numpy()
+    trc = R.acceptance_table(torch.tensor(beta)).numpy()
+    k = int(np.nonzero(lit != trc)[0][0])
+    x = np.float32(R._X_VALUES[k])
+    sigma = np.float32([1.0, 1.0])
+    nn = np.float32([x, x])
+    probs = np.float32([min(lit[k], trc[k]), min(lit[k], trc[k])])
+    flip = R.get_rule("lut").flip_probs
+    jflip = JR.get_rule("lut").flip_probs
+    args = (torch.from_numpy(sigma), torch.from_numpy(nn),
+            torch.from_numpy(probs))
+    jargs = tuple(jnp.asarray(a) for a in (sigma, nn, probs))
+    want_lit = jax.jit(lambda s, n, p: jflip(s, n, p, beta))(*jargs)
+    want_trc = jax.jit(lambda s, n, p, b: jflip(s, n, p, b))(
+        *jargs, jnp.float32(beta))
+    got_lit = flip(*args, beta)
+    got_trc = flip(*args, torch.tensor(beta))
+    np.testing.assert_array_equal(got_lit.numpy(), _np32(want_lit))
+    np.testing.assert_array_equal(got_trc.numpy(), _np32(want_trc))
+    assert not np.array_equal(got_lit.numpy(), got_trc.numpy())
+
+
+@pytest.mark.parametrize("n", [5, 21, 384, 1000, 4097, 65536])
+def test_per_spin_is_xla_division_by_a_constant(n):
+    """XLA rewrites x / N for a constant N into x * f32(1/N); the port's
+    per-spin division does the same (equal at powers of two)."""
+    rng = np.random.default_rng(n)
+    x = rng.choice([-1.0, 1.0], (64, n)).astype(np.float32)
+    want = np.asarray(jax.jit(jax.vmap(jnp.mean))(x))
+    got = [float(M.per_spin(torch.sum(torch.from_numpy(r)), n)) for r in x]
+    np.testing.assert_array_equal(np.float32(got), want)
 
 
 @pytest.mark.parametrize("rule", ["metropolis_lut", "metropolis_exp",
                                   "heat_bath"])
 @pytest.mark.parametrize("jdt,tdt", DTYPES)
 def test_flip_probs_matches_jax(rule, jdt, tdt):
+    """Every beta, with and without a field, f32 and bf16: a Python-number
+    beta against the reference jitted with the beta as a literal (its
+    chain), a tensor beta against the reference with a traced beta (its
+    ensembles)."""
     sigma, nn, probs, _ = _site_inputs(1)
-    checked = 0
+    jflip = JR.get_rule(rule).flip_probs
+    jargs = (jnp.asarray(sigma, jdt), jnp.asarray(nn, jdt),
+             jnp.asarray(probs))
+    args = (torch.from_numpy(sigma).to(tdt), torch.from_numpy(nn).to(tdt),
+            torch.from_numpy(probs))
     for beta in BETAS:
-        if tdt is torch.float32 and not _tables_agree(beta):
-            continue          # f32 exp/sigmoid ulp gap (ROADMAP Queue C)
         for field in ((0.0, 0.25) if rule != "metropolis_exp" else (0.0,)):
-            want = JR.get_rule(rule).flip_probs(
-                jnp.asarray(sigma, jdt), jnp.asarray(nn, jdt),
-                jnp.asarray(probs), beta, field)
-            got = R.get_rule(rule).flip_probs(
-                torch.from_numpy(sigma).to(tdt),
-                torch.from_numpy(nn).to(tdt), torch.from_numpy(probs),
-                beta, field)
-            if tdt is torch.float32 and field:
-                continue      # the field's per-site exp carries the same gap
+            want = jax.jit(lambda s, n, p: jflip(s, n, p, beta, field))(
+                *jargs)
+            got = R.get_rule(rule).flip_probs(*args, beta, field)
             np.testing.assert_array_equal(got.float().numpy(), _np32(want))
-            checked += 1
-    assert checked >= 4
+            want_t = jax.jit(lambda s, n, p, b: jflip(s, n, p, b, field))(
+                *jargs, jnp.float32(beta))
+            got_t = R.get_rule(rule).flip_probs(
+                *args, torch.tensor(beta, dtype=torch.float32), field)
+            np.testing.assert_array_equal(got_t.float().numpy(),
+                                          _np32(want_t))
 
 
 @pytest.mark.parametrize("rule", ["metropolis_lut", "metropolis_exp",
