@@ -32,11 +32,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    replicas one at a time (bitwise equal, both timed); the share of a
    sweep that is threefry bits, and the share of a Swendsen-Wang sweep
    spent in threefry bits, label rounds and the changed-flag check;
-7. CUDA-event timings at the main path's shapes: each kernel against its
+7. the decomposed lattice at a small size, card == CPU bitwise (state and
+   moments): ``"mesh"`` (one-rank grid) and ``"opt"`` on the xla paper
+   pipeline, the xla opt pipeline and ``pallas_lines``, measured
+   (Metropolis, bf16) and not (heat-bath, f32), at 256^2 (bs 16), and
+   ``"mesh3d"`` at 16^3; the lines kernel bitwise against its plain
+   version with halo lines that differ from the local torus roll (an edge
+   provider of negated lines), at a small shape and the main path's;
+8. a one-rank NCCL process group, then the same ``mesh`` / ``opt`` paths at
+   20480^2 (80 x 80 blocks of bs 128, bf16, beta 0.4406868, hot, 3
+   sweeps), measured and not: 2 lines-kernel launches per sweep on
+   ``pallas_lines`` and none elsewhere, the measured runs' stats
+   all-reduced over the group, flips/ns and peak memory; ``mesh3d`` timed
+   at 512^3; the launcher (``repro_torch.launch.simulate``) at 4096^2 on
+   one rank: 6 sweeps with a checkpoint every 3, a resume to 9, equal
+   bitwise to a straight 9-sweep run;
+9. CUDA-event timings at the main path's shapes: each kernel against its
    bound and its plain version, color_bits, blocked_stats, sweeps per
    second without measurement (flips/ns), peak memory.
 
-Every path of phases 4-6 runs with the kernel launch counts set to 0 just
+Every path of phases 4-8 runs with the kernel launch counts set to 0 just
 before and read just after: 2 per sweep for the kernel backends, 0 for
 the scenarios that run no kernel.
 
@@ -46,7 +61,9 @@ or without the repository beside it, it prints no result and exits 1.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -584,6 +601,217 @@ def phase_cluster_breakdown(n: int = 2048) -> None:
         f"rest {rest:.3f} ms ({rest / sweep_ms:.1%})")
 
 
+GRID_PATHS = [
+    # (label, EngineConfig overrides): the decomposed lattice on one rank
+    ("mesh xla paper", dict(topology="mesh", mesh_shape=(1, 1))),
+    ("mesh xla opt", dict(topology="mesh", mesh_shape=(1, 1),
+                          pipeline="opt")),
+    ("mesh pallas_lines", dict(topology="mesh", mesh_shape=(1, 1),
+                               backend="pallas_lines")),
+    ("opt xla", dict(pipeline="opt")),
+    ("opt pallas_lines", dict(pipeline="opt", backend="pallas_lines")),
+]
+
+
+def _check_launches(label: str, cfg, sweeps: int) -> None:
+    from repro_torch.kernels import checkerboard as kern
+    want = 2 * sweeps if cfg.backend == "pallas_lines" else 0
+    if (kern.launches["update_color_lines"] != want
+            or kern.launches["update_color_tiles"]):
+        raise AssertionError(f"{label}: launches {kern.launches}, want "
+                             f"{want} of update_color_lines")
+
+
+def phase_grid_small() -> None:
+    """The decomposed lattice at a small size: card == CPU, bitwise."""
+    import torch
+    from repro_torch.api import EngineConfig, IsingEngine
+    from repro_torch.kernels import checkerboard as kern
+    cases = []
+    for label, kw in GRID_PATHS:
+        cases.append((label + " measured", EngineConfig(
+            size=256, beta=BETA, n_sweeps=3, block_size=16, hot=True, **kw)))
+        cases.append((label + " heat_bath f32", EngineConfig(
+            size=256, beta=BETA, n_sweeps=3, block_size=16, hot=True,
+            rule="heat_bath", dtype="float32", measure=False, **kw)))
+    for measure in (True, False):
+        cases.append((f"mesh3d 16^3 measure={measure}", EngineConfig(
+            size=16, beta=0.2216546, dims=3, n_sweeps=3, hot=True,
+            topology="mesh", mesh_shape=(1, 1), measure=measure)))
+    for i, (label, cfg) in enumerate(cases):
+        kern.reset_launches()
+        dev = IsingEngine(cfg, device="cuda").simulate(60 + i)
+        torch.cuda.synchronize()
+        _check_launches(label, cfg, cfg.n_sweeps)
+        cpu = IsingEngine(cfg, device="cpu").simulate(60 + i)
+        if dev.state.device.type != "cuda" or not _same_result(dev, cpu):
+            raise AssertionError(f"{label}: card != CPU")
+        log(f"small grid {label}: card == CPU (state, moments "
+            f"{'m_abs=%r' % dev.moments['m_abs'] if dev.moments else None})")
+
+
+def phase_lines_halo(errs: dict) -> None:
+    """The lines kernel fed halo lines that are not the local torus roll
+    (each line negated), bitwise against its plain version on the same
+    lines, at a small shape and the main path's."""
+    import torch
+    from repro_torch.core import checkerboard as cb
+    from repro_torch.kernels import checkerboard as kern
+
+    def negated(xb, side):
+        return -cb.default_edges(xb, side)
+
+    mr = SIZE // 2 // BS
+    for grid, bs in (((2, 3), 16), ((mr, mr), BS)):
+        qb, bits = blocked_state(17, *grid, bs, torch.bfloat16, "cuda")
+        for color in (0, 1):
+            for rule in ("metropolis_lut", "heat_bath"):
+                lines = kern._lines(qb, color, negated)
+                got = kern.update_color_lines(qb.clone(), bits, BETA, color,
+                                              rule, edges=negated)
+                want = kern.update_color_lines_plain(qb.clone(), bits, BETA,
+                                                     color, rule, lines)
+                torus = kern.update_color_lines(qb.clone(), bits, BETA,
+                                                color, rule)
+                torch.cuda.synchronize()
+                err = exact_diff(got, want)
+                errs["update_color_lines"] = max(errs["update_color_lines"],
+                                                 err)
+                if err or not exact_diff(got, torus):
+                    raise AssertionError(
+                        f"lines kernel with halo lines {grid} bs={bs} "
+                        f"color={color} {rule}: err={err}, differs from "
+                        f"the torus run: {bool(exact_diff(got, torus))}")
+        del qb, bits, got, want, torus
+    log("lines kernel with non-torus halo lines (negated) == plain version "
+        "on the same lines, bitwise, at [4, 2, 3, 16, 16] and "
+        f"[4, {mr}, {mr}, {BS}, {BS}]; the torus run differs")
+
+
+def init_group():
+    """A one-rank NCCL process group on card 0 (the grid scenarios'
+    all-reduce goes through it)."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    log(f"process group: backend {dist.get_backend()}, world size "
+        f"{dist.get_world_size()}")
+
+
+def phase_grid_full() -> dict:
+    """The decomposed lattice at the main path's size through the NCCL
+    group, measured and not, timed on the host clock (synchronised)."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.api import EngineConfig, IsingEngine
+    from repro_torch.kernels import checkerboard as kern
+    from repro_torch.launch import mesh as mesh_lib
+    out = {}
+    for label, kw in GRID_PATHS:
+        for measure in (True, False):
+            cfg = EngineConfig(size=SIZE, beta=BETA, n_sweeps=MAIN_SWEEPS,
+                               block_size=BS, hot=True, measure=measure,
+                               **kw)
+            torch.cuda.reset_peak_memory_stats()
+            eng = IsingEngine(cfg)
+            if not eng.grid.distributed:
+                raise AssertionError(f"{label}: the grid has no group")
+            state = eng.init(jr.PRNGKey(70))
+            # one untimed sweep of the same kind warms cuBLAS and the
+            # allocator
+            IsingEngine(dataclasses.replace(cfg, n_sweeps=1)).run(
+                state, jr.PRNGKey(71))
+            torch.cuda.synchronize()
+            kern.reset_launches()
+            mesh_lib.reset_counters()
+            t0 = time.perf_counter()
+            res = eng.run(state, jr.PRNGKey(72))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            name = f"{label} measure={measure}"
+            _check_launches(name, cfg, MAIN_SWEEPS)
+            reduces = mesh_lib.counters["all_reduce"]
+            if measure and (reduces != 2 * MAIN_SWEEPS
+                            or not all(map(math.isfinite,
+                                           res.moments.values()))
+                            or abs(res.moments["m_abs"]) > 1.0):
+                raise AssertionError(f"{name}: all-reduces {reduces}, "
+                                     f"moments {res.moments}")
+            if res.state.shape != (4, SIZE // 2 // BS, SIZE // 2 // BS, BS,
+                                   BS):
+                raise AssertionError(f"{name}: state "
+                                     f"{tuple(res.state.shape)}")
+            peak = torch.cuda.max_memory_allocated()
+            rate = MAIN_SWEEPS * SIZE ** 2 / seconds / 1e9
+            out[name] = dict(seconds=seconds, flips_per_ns=rate, peak=peak)
+            log(f"grid {name} {SIZE}^2: {MAIN_SWEEPS} sweeps in "
+                f"{seconds:.4f} s, {seconds / MAIN_SWEEPS * 1e3:.3f} ms per "
+                f"sweep, {rate:.4f} flips/ns, launches "
+                f"{dict(kern.launches)}, all-reduces {reduces}, peak "
+                f"{peak / 2**30:.2f} GiB"
+                + (f", E={res.moments['E']:.6f}" if measure else ""))
+            del eng, state, res
+    return out
+
+
+def phase_mesh3d_full(side: int = 512, sweeps: int = 2) -> None:
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.api import EngineConfig, IsingEngine
+    from repro_torch.kernels import checkerboard as kern
+    cfg = EngineConfig(size=side, beta=0.2216546, dims=3, n_sweeps=sweeps,
+                       topology="mesh", mesh_shape=(1, 1))
+    eng = IsingEngine(cfg)
+    state = eng.init(jr.PRNGKey(80))
+    eng.run_sweeps(state, jr.PRNGKey(81), 1)
+    torch.cuda.synchronize()
+    kern.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run(state, jr.PRNGKey(82))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    _no_launches("mesh3d")
+    if not abs(res.moments["m_abs"]) <= 1.0:
+        raise AssertionError(f"mesh3d: moments {res.moments}")
+    log(f"grid mesh3d {side}^3: {sweeps} measured sweeps in {seconds:.4f} s,"
+        f" {seconds / sweeps * 1e3:.3f} ms per sweep, "
+        f"{side ** 3 * sweeps / seconds / 1e9:.4f} sites/ns")
+
+
+def phase_launcher(size: int = 4096) -> None:
+    """``repro_torch.launch.simulate`` on one rank of the card: 6 sweeps,
+    a checkpoint every 3, a resume to 9 == a straight 9-sweep run."""
+    import shutil
+    import numpy as np
+    from repro_torch.kernels import checkerboard as kern
+    from repro_torch.launch import simulate
+    work = ROOT / "build" / "chip_smoke_launcher"
+    shutil.rmtree(work, ignore_errors=True)
+    common = ["--mesh", "1,1", "--blocks-per-device", str(size // 2 // BS),
+              "--block-size", str(BS), "--chunk", "3"]
+    kern.reset_launches()
+    t0 = time.perf_counter()
+    for sweeps, where in ((6, "resumed"), (9, "resumed"), (9, "straight")):
+        if simulate.main(common + ["--sweeps", str(sweeps), "--ckpt-dir",
+                                   str(work / where)]):
+            raise AssertionError("the launcher failed")
+    _no_launches("launcher")
+    with np.load(work / "resumed" / "step_00000009.npz") as a, \
+            np.load(work / "straight" / "step_00000009.npz") as b:
+        if not np.array_equal(a["qb"], b["qb"]):
+            raise AssertionError("launcher: resumed != straight at sweep 9")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"launcher {size}^2 on one rank: 6 sweeps (checkpoint every 3), "
+        f"resume to 9 == straight 9, bitwise; "
+        f"{time.perf_counter() - t0:.1f} s for the three runs")
+
+
 def bound(name: str, qb, bits) -> tuple:
     """(bound_ms, bound_by) of one launch: each input read once, each
     output written once; about 10 f32 operations per updated site."""
@@ -685,9 +913,19 @@ def main() -> int:
     phase_rng_shares(phase_scenarios_full())
     phase_replica_stack()
     phase_cluster_breakdown()
-    log(f"new scenario phases: {time.perf_counter() - t_new:.1f} s")
+    log(f"single-device scenario phases: {time.perf_counter() - t_new:.1f} s")
+    t_grid = time.perf_counter()
+    phase_grid_small()
+    phase_lines_halo(errs)
+    init_group()
+    phase_grid_full()
+    phase_mesh3d_full()
+    phase_launcher()
+    log(f"grid phases: {time.perf_counter() - t_grid:.1f} s")
     records, _ = phase_timing(launches, errs)
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    import torch.distributed as dist
+    dist.destroy_process_group()
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

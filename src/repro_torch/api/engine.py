@@ -21,14 +21,25 @@ same :class:`EngineConfigError`. Ported scenarios (one device):
   beta or a betas ensemble;
 * ``"potts_cb"`` / ``"potts_cluster"``: the q-state Potts model
   (:mod:`repro_torch.potts`), checkerboard heat-bath / Metropolis or
-  Swendsen-Wang / Wolff, one beta or an ensemble.
+  Swendsen-Wang / Wolff, one beta or an ensemble;
+* ``"mesh"`` (``topology="mesh"``) and ``"opt"`` (``pipeline="opt"`` on
+  one device): the decomposed 2-D lattice
+  (:mod:`repro_torch.distributed.ising`) on a process grid of
+  ``mesh_shape`` (one rank for ``"opt"``), the state this rank's block
+  ``[4, mr, mc, bs, bs]``; ``backend="pallas_lines"`` launches the CUDA
+  lines kernel per colour with its halo lines from the grid;
+* ``"mesh3d"``: the decomposed cube (:mod:`repro_torch.distributed.
+  ising3d`), the state this rank's ``[ld, lh, lw]`` block.
 
-``pipeline="opt"`` and every ``topology="mesh"`` configuration raise
-``EngineConfigError`` naming them as not yet ported. RNG contract as in the
-reference: ``simulate(seed)`` splits ``PRNGKey(seed)`` into init and chain
-keys; replica i of an ensemble is bitwise a single chain keyed
-``fold_in(key, i)``; and the run is bitwise equal to the JAX engine's from
-the same seed (``tests/test_torch_*.py``).
+The grid scenarios need a ``torch.distributed`` group whose world size is
+the shard count (none for one shard), and stream moments only, as the
+reference does. The cluster and Potts meshes and replica ensembles on a
+mesh raise ``EngineConfigError`` naming them as not yet ported. RNG
+contract as in the reference: ``simulate(seed)`` splits ``PRNGKey(seed)``
+into init and chain keys; replica i of an ensemble is bitwise a single
+chain keyed ``fold_in(key, i)``; and the run is bitwise equal to the JAX
+engine's from the same seed, on as many ranks as the JAX run has devices
+(``tests/test_torch_*.py``).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; keys are host-side ``(k0, k1)`` pairs
@@ -51,7 +62,10 @@ from repro_torch.core import measure
 from repro_torch.core import observables as obs
 from repro_torch.core import sampler
 from repro_torch.core import tempering as pt
+from repro_torch.distributed import ising as dising
+from repro_torch.distributed import ising3d as d3
 from repro_torch.kernels import ops as kops
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.potts import bonds as potts_bonds
 from repro_torch.potts import rules as potts_rules
 from repro_torch.potts import state as potts_state
@@ -422,9 +436,12 @@ class EngineResult:
 
     state:          final state on the engine's device: compact quads
                     [4, R, C], replicas [Rr, 4, R, C], the [D, H, W] cube,
-                    or int32 colour views [H, W] / [Rr, H, W] (Potts)
+                    int32 colour views [H, W] / [Rr, H, W] (Potts), or
+                    this rank's block of a grid scenario: blocked quads
+                    [4, mr, mc, bs, bs] (mesh, opt) or [ld, lh, lw] (mesh3d)
     magnetization:  per-sweep m, host f32 tensor [T] or [n_replicas, T]
-                    (None when measure=False); the Potts order parameter
+                    (None when measure=False, and for the grid scenarios,
+                    which stream moments only); the Potts order parameter
                     for model="potts"; per-round |m| [n_replicas, rounds]
                     for tempering
     energy:         per-sweep E/spin, same shape (None when unmeasured and
@@ -443,17 +460,22 @@ class EngineResult:
 
 
 _PORTED = ("chain", "kernel", "ensemble", "tempering", "3d", "cluster",
-           "potts_cb", "potts_cluster")
+           "potts_cb", "potts_cluster", "opt", "mesh", "mesh3d")
+_GRID_SCENARIOS = ("opt", "mesh", "mesh3d")
 
 
-def _resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "IsingEngine runs on the CUDA device by default and none is "
-                "available; pass device='cpu' to run the plain PyTorch path")
-        return torch.device("cuda")
-    return torch.device(device)
+def check_ported(cfg: EngineConfig) -> str:
+    """Validate ``cfg`` and return its scenario, or raise
+    ``EngineConfigError`` for a scenario the port does not run yet."""
+    cfg.validate()
+    scen = _scenario(cfg)
+    if scen not in _PORTED or (cfg.topology == "mesh"
+                               and scen not in _GRID_SCENARIOS):
+        where = " on a mesh" if cfg.topology == "mesh" else ""
+        _config_error(f"scenario {scen!r}{where} is not yet ported to "
+                      f"PyTorch (ported: {', '.join(_PORTED)}); use the "
+                      "JAX package's repro.api for it")
+    return scen
 
 
 class IsingEngine:
@@ -467,22 +489,107 @@ class IsingEngine:
     ``device`` defaults to ``"cuda"``; the tests pass ``device="cpu"``.
     """
 
-    def __init__(self, cfg: EngineConfig, device=None):
-        cfg.validate()
-        scen = _scenario(cfg)
-        if scen not in _PORTED or cfg.topology == "mesh":
-            where = " on a mesh" if cfg.topology == "mesh" else ""
-            _config_error(f"scenario {scen!r}{where} is not yet ported to "
-                          f"PyTorch (ported, on one device: "
-                          f"{', '.join(_PORTED)}); use the JAX package's "
-                          "repro.api for it")
+    def __init__(self, cfg: EngineConfig, device=None, grid=None):
+        scen = check_ported(cfg)
         self.cfg = cfg
-        self.device = _resolve_device(device)
+        self.grid = None
+        if scen in _GRID_SCENARIOS:
+            self.grid = grid if grid is not None else self._make_grid(device)
+            self._check_grid(scen)
+            self.device = self.grid.device
+        else:
+            self.device = mesh_lib.resolve_device(device)
         self._dtype = L.torch_dtype(cfg.dtype)
         self._chunk_engines: dict = {}
+        self._runners: dict = {}
+
+    def _make_grid(self, device):
+        """This rank's grid: ``mesh_shape`` over ``mesh_axes`` (one shard
+        per axis for ``"opt"`` on one device), over the initialised process
+        group, whose world size must be the shard count."""
+        c = self.cfg
+        shape = tuple(c.mesh_shape) or (1,) * len(c.mesh_axes)
+        try:
+            return mesh_lib.make_grid(shape, c.mesh_axes, device)
+        except ValueError as exc:
+            _config_error(f"{exc}; start as many ranks (torch.distributed) "
+                          "as the grid has shards")
+
+    def _check_grid(self, scen: str) -> None:
+        """The reference's tiling checks against the grid."""
+        c, grid = self.cfg, self.grid
+        if scen == "mesh3d":
+            d3cfg = self._dist3d_cfg()
+            for name, axes in (("depth", d3cfg.depth_axes),
+                               ("row", d3cfg.row_axes),
+                               ("col", d3cfg.col_axes)):
+                n = grid.axis_size(axes)
+                if c.size % n:
+                    _config_error(
+                        f"3-D cube side {c.size} does not divide the "
+                        f"{name} shard count {n} (mesh_axes "
+                        f"{c.mesh_axes}); adjust size or mesh_shape")
+            return
+        dcfg = self._dist_cfg()
+        bs = c.resolved_block_size()
+        mr, mc = c.size // 2 // bs, c.resolved_width() // 2 // bs
+        nrows = grid.axis_size(dcfg.row_axes)
+        ncols = grid.axis_size(dcfg.col_axes)
+        if mr % nrows or mc % ncols:
+            _config_error(
+                f"blocked lattice grid {mr}x{mc} (block_size {bs}) does not "
+                f"tile the {nrows}x{ncols} device grid; adjust size/width "
+                "or block_size")
 
     def _scenario(self) -> str:
         return _scenario(self.cfg)
+
+    # ------------------------------------------------------------------
+    # Grid geometry
+    # ------------------------------------------------------------------
+
+    def _dist_cfg(self) -> dising.DistIsingConfig:
+        c = self.cfg
+        return dising.DistIsingConfig(
+            beta=c.beta, block_size=c.resolved_block_size(),
+            row_axes=c.mesh_axes[:-1] or c.mesh_axes,
+            col_axes=(c.mesh_axes[-1],), accept=c.accept,
+            backend=("pallas_lines" if c.backend == "pallas_lines"
+                     else "xla"),
+            prob_dtype=c.prob_dtype, pipeline=c.pipeline, rule=c.rule)
+
+    def _dist3d_cfg(self) -> d3.Dist3DConfig:
+        """The grid axes map onto the cube's (D, H, W) right-aligned: a
+        2-axis grid shards (H, W) and leaves depth whole."""
+        m = self.cfg.mesh_axes
+        return d3.Dist3DConfig(beta=self.cfg.beta, depth_axes=tuple(m[:-2]),
+                               row_axes=(m[-2],), col_axes=(m[-1],))
+
+    def state_sharding(self):
+        """``(grid, placement)`` of a grid scenario's state, the local-block
+        counterpart of the reference's NamedSharding (what checkpoint
+        restore slices a rank's block with); None elsewhere."""
+        scen = self._scenario()
+        if scen == "mesh3d":
+            return self.grid, d3.lattice_spec(self.grid, self._dist3d_cfg())
+        if scen in ("mesh", "opt"):
+            return self.grid, dising.lattice_spec(self._dist_cfg())
+        return None
+
+    def _grid_runner(self, n_sweeps: int, measured: bool):
+        key_ = (n_sweeps, measured)
+        if key_ not in self._runners:
+            if self._scenario() == "mesh3d":
+                mod, dcfg = d3, self._dist3d_cfg()
+            else:
+                mod, dcfg = dising, self._dist_cfg()
+            if measured:
+                self._runners[key_] = mod.make_run_chain_fn(
+                    self.grid, dcfg, n_sweeps, self.cfg.measure_every)
+            else:
+                self._runners[key_] = mod.make_run_sweeps_fn(
+                    self.grid, dcfg, n_sweeps)
+        return self._runners[key_]
 
     def _chain_cfg(self) -> sampler.ChainConfig:
         c = self.cfg
@@ -515,11 +622,25 @@ class IsingEngine:
         scen = self._scenario()
         if scen.startswith("potts"):
             return self._init_potts(key)
-        if scen == "3d":
+        if scen in ("3d", "mesh3d"):
             n = c.size
             if self._auto_hot(c.beta):
-                return I3.random_lattice3d(key, n, n, n, self._dtype, dev)
-            return I3.cold_lattice3d(n, n, n, self._dtype, dev)
+                full = I3.random_lattice3d(key, n, n, n, self._dtype, dev)
+            else:
+                full = I3.cold_lattice3d(n, n, n, self._dtype, dev)
+            if scen == "mesh3d":
+                full = self.grid.local_block(full, self.state_sharding()[1])
+            return full
+        if scen in ("mesh", "opt"):
+            # the whole lattice from the key on every rank, as the
+            # reference draws it, then this rank's block
+            w = c.resolved_width()
+            full = (L.random_lattice(key, c.size, w, self._dtype, dev)
+                    if self._auto_hot(c.beta)
+                    else L.cold_lattice(c.size, w, self._dtype, dev))
+            qb = kops._block_quads(L.to_quads(full),
+                                   c.resolved_block_size())
+            return self.grid.local_block(qb, self.state_sharding()[1])
         if c.betas:
             return torch.stack([
                 sampler.init_state(jr.fold_in(key, i), c.size,
@@ -636,6 +757,12 @@ class IsingEngine:
         if scen == "kernel":
             final, ms, es = self._run_kernel(state, key)
             return EngineResult(final, ms, es, self._series_moments(ms, es))
+        if scen in _GRID_SCENARIOS:
+            if c.measure:
+                final, mom = self._grid_runner(c.n_sweeps, True)(state, key)
+                return EngineResult(final, moments=measure.finalize(mom))
+            return EngineResult(self._grid_runner(c.n_sweeps, False)(
+                state, key))
         one_sweep, one_sweep_measured, rep_args = replica_sweep_fns(c)
         pre, post = ((L.from_quads, L.to_quads) if scen == "cluster"
                      else (None, None))
@@ -665,6 +792,9 @@ class IsingEngine:
                    n_sweeps: int) -> torch.Tensor:
         """Measurement-free chunk of ``n_sweeps`` sweeps; returns the new
         state. The sweep counter restarts at 0, as in the reference."""
+        if self._scenario() in _GRID_SCENARIOS:
+            return self._grid_runner(n_sweeps, False)(state.to(self.device),
+                                                      key)
         if self._scenario() == "tempering":
             _config_error("tempering chunks are not supported; use run() "
                           "(swap decisions need the measured energies)")
@@ -680,18 +810,40 @@ class IsingEngine:
         return self.run(self.init(k_init), k_chain)
 
     def magnetization(self, state: torch.Tensor) -> float:
-        """Global mean spin of any state layout (host scalar)."""
-        return float(measure.per_spin(torch.sum(state.float()),
-                                      state.numel()))
+        """Global mean spin of any state layout (host scalar); for a grid
+        scenario, of the whole lattice from this rank's block."""
+        total, n = torch.sum(state.float()), state.numel()
+        if self.grid is not None:
+            total, n = self.grid.psum(total), n * self.grid.size
+        return float(measure.per_spin(total, n))
+
+    def stats(self, state: torch.Tensor) -> tuple:
+        """Exact global (m, E/spin) of a grid scenario's state without
+        gathering it: the local sums, all-reduced over the grid."""
+        scen = self._scenario()
+        if scen not in _GRID_SCENARIOS:
+            _config_error("stats(state) reads the decomposed layouts; use "
+                          "run() results elsewhere")
+        mod, dcfg = ((d3, self._dist3d_cfg()) if scen == "mesh3d"
+                     else (dising, self._dist_cfg()))
+        if "global_stats" not in self._runners:
+            self._runners["global_stats"] = mod.global_stats(self.grid, dcfg)
+        m, e = self._runners["global_stats"](state.to(self.device))
+        return float(m), float(e)
 
     def state_template(self) -> torch.Tensor:
         """A ``meta`` tensor with this scenario's state shape and dtype —
-        no allocation."""
+        no allocation. For a grid scenario it is the global shape, which
+        checkpoints hold; :meth:`state_sharding` places a rank's block."""
         c = self.cfg
         scen = self._scenario()
         dt = torch.int32 if scen.startswith("potts") else self._dtype
-        if scen == "3d":
+        if scen in ("3d", "mesh3d"):
             shape = (c.size,) * 3
+        elif scen in ("mesh", "opt"):
+            bs = c.resolved_block_size()
+            shape = (4, c.size // 2 // bs, c.resolved_width() // 2 // bs,
+                     bs, bs)
         elif scen.startswith("potts"):
             shape = (c.size, c.resolved_width())
             if c.betas:

@@ -13,6 +13,9 @@ neighbours are rolls (:func:`nn_full3d`).
 RNG: per-site uniforms hash the *global* linear site index
 (:func:`site_uniforms3d`, ``fold_in`` over counters), u24 bits mapped to
 f32 exactly, so any spatial decomposition draws the same uniform per site.
+The decomposed cube (:mod:`repro_torch.distributed.ising3d`) passes its own
+``nn_fn`` (halo'd rolls) and the ``mask`` of its global parity
+(:func:`parity_mask3d` with its ``offsets``).
 
 Every function also takes a stack of cubes ``[N, D, H, W]`` with a key
 batch and an [N] beta tensor, and steps the N replicas in one pass.
@@ -68,11 +71,13 @@ def _acceptance3d(nn, sigma, beta) -> torch.Tensor:
     return rules.lookup(table, idx)
 
 
-def parity_mask3d(shape, color: int, device="cpu") -> torch.Tensor:
-    """Bool [D, H, W] mask of sites with parity ``color``."""
+def parity_mask3d(shape, color: int, device="cpu",
+                  offsets=(0, 0, 0)) -> torch.Tensor:
+    """Bool [D, H, W] mask of sites with *global* parity ``color``;
+    ``offsets`` is the block origin on a decomposed cube."""
     d, h, w = shape
-    ar = [torch.arange(n, dtype=torch.int32, device=device)
-          for n in (d, h, w)]
+    ar = [o + torch.arange(n, dtype=torch.int32, device=device)
+          for o, n in zip(offsets, (d, h, w))]
     i = ar[0][:, None, None] + ar[1][None, :, None] + ar[2][None, None, :]
     return i % 2 == color
 
@@ -91,27 +96,31 @@ def site_uniforms3d(key, gi: torch.Tensor) -> torch.Tensor:
     return ((bits >> 8) & 0xFFFFFF).float() * _INV_2_24
 
 
-def update_color3d(full, probs, beta, color: int) -> torch.Tensor:
-    """One half-sweep of the sites of parity ``color``."""
-    mask = parity_mask3d(full.shape[-3:], color, full.device)
-    acc = _acceptance3d(nn_full3d(full).to(full.dtype), full, beta)
+def update_color3d(full, probs, beta, color: int, nn_fn=nn_full3d,
+                   mask=None) -> torch.Tensor:
+    """One half-sweep of the sites of parity ``color``. A decomposed cube
+    passes its halo'd ``nn_fn`` and the ``mask`` of its global parity."""
+    if mask is None:
+        mask = parity_mask3d(full.shape[-3:], color, full.device)
+    acc = _acceptance3d(nn_fn(full).to(full.dtype), full, beta)
     flips = (probs.float() < acc) & mask
     return torch.where(flips, -full, full)
 
 
-def sweep3d(full, key, step: int, beta) -> torch.Tensor:
+def sweep3d(full, key, step: int, beta, nn_fn=nn_full3d) -> torch.Tensor:
     """One full 3-D sweep (both colours), counter-based RNG."""
     gi = global_index3d(full.shape[-3:], full.device)
     for color in (0, 1):
         k = jr.fold_in(jr.fold_in(key, step), color)
-        full = update_color3d(full, site_uniforms3d(k, gi), beta, color)
+        full = update_color3d(full, site_uniforms3d(k, gi), beta, color,
+                              nn_fn)
     return full
 
 
-def run_sweeps3d(full, key, n_sweeps: int, beta):
+def run_sweeps3d(full, key, n_sweeps: int, beta, nn_fn=nn_full3d):
     """Chain of ``n_sweeps``; returns (final, m[T] on the device)."""
     ms = torch.empty(n_sweeps, dtype=torch.float32, device=full.device)
     for step in range(n_sweeps):
-        full = sweep3d(full, key, step, beta)
+        full = sweep3d(full, key, step, beta, nn_fn)
         ms[step] = obs.magnetization(full)
     return full, ms

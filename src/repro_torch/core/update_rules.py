@@ -11,15 +11,22 @@ three forms of the same transition kernel:
     Raw-bits form (kernel semantics): uint32 bits (an int32 bit pattern),
     top 24 bits -> f32 uniform, f32 select-chain table, f32 compare.
 
+``flip_bits_int(sigma, nn, bits, beta)``
+    Integer-threshold form (``pipeline='opt'``): ``u < ceil(p * 2^24)``
+    decides exactly as the f32 compare does. ``bits`` are uint32 (int32
+    pattern; the top 24 bits) or uint16 (int16 pattern; the thresholds
+    rescaled to 2^16 with ceil).
+
 ``kernel_form(beta)``
     Returns ``fn(sigma, nn_f32, bits)`` with the table fixed on the host:
     the form the kernels' plain versions run. :func:`kernel_table` gives
     the same five f32 values to the CUDA kernels.
 
 Rules: ``metropolis_lut`` (exact 5-entry table), ``metropolis_exp`` (the
-paper's per-site ``exp``; same table on the bits path) and ``heat_bath``
-(Glauber). Aliases ``lut``, ``exp``, ``metropolis`` and ``glauber`` are
-accepted by :func:`get_rule`.
+paper's per-site ``exp``; same table on the bits path), ``metropolis_int``
+(the integer-threshold path, decisions bitwise those of ``metropolis_lut``)
+and ``heat_bath`` (Glauber). Aliases ``lut``, ``exp``, ``metropolis``,
+``int`` and ``glauber`` are accepted by :func:`get_rule`.
 
 ``beta`` is a Python number (one chain: the reference bakes it into its
 compiled loop) or an f32 tensor (replica couplings: the reference traces
@@ -92,6 +99,7 @@ class UpdateRule:
     name: str
     flip_probs: Callable        # (sigma, nn, probs, beta, field=0.0)
     flip_bits: Callable         # (sigma, nn, bits, beta)  float-compare
+    flip_bits_int: Callable     # (sigma, nn, bits, beta)  integer-compare
     kernel_form: Callable       # (beta) -> fn(sigma, nn_f32, bits)
     table: Callable             # (beta) -> five f32 kernel table values
     supports_field: bool = False
@@ -102,6 +110,7 @@ _ALIASES = {
     "lut": "metropolis_lut",
     "exp": "metropolis_exp",
     "metropolis": "metropolis_lut",
+    "int": "metropolis_int",
     "glauber": "heat_bath",
 }
 
@@ -131,6 +140,40 @@ def thresholds_u24(probs_f32) -> list:
     decides as ``u24 / 2^24 < p`` does (p * 2^24 is exact in f64)."""
     return [min(math.ceil(float(np.float32(p)) * (1 << 24)), 1 << 24)
             for p in probs_f32]
+
+
+def _select5_int(x: torch.Tensor, ts, lim: int) -> torch.Tensor:
+    """int32 threshold per site from x in {-4,-2,0,2,4} (select chain as
+    :func:`_select5`; the first three entries capped at ``lim``)."""
+    t = [torch.tensor(v, dtype=torch.int32, device=x.device)
+         for v in (min(ts[0], lim), min(ts[1], lim), min(ts[2], lim),
+                   ts[3], ts[4])]
+    return torch.where(
+        x <= -3.0, t[0],
+        torch.where(x <= -1.0, t[1],
+                    torch.where(x <= 1.0, t[2],
+                                torch.where(x <= 3.0, t[3], t[4]))))
+
+
+def _int_compare(bits: torch.Tensor, ts24: list, x: torch.Tensor):
+    """True where the integer uniform falls below the per-x threshold.
+
+    uint32 bits (int32 pattern) compare their top 24 bits, a logical
+    shift (the arithmetic ``>> 8`` of the pattern, masked). uint16 bits
+    (int16 pattern) widen without sign extension and compare against the
+    u24 thresholds rescaled to 2^16 with ceil."""
+    if bits.dtype == torch.int16:
+        ts = [min((t + 255) >> 8, 1 << 16) for t in ts24]
+        u = bits.to(torch.int32) & 0xFFFF
+        lim = 1 << 16
+    elif bits.dtype == torch.int32:
+        ts = ts24
+        u = (bits >> 8) & 0xFFFFFF
+        lim = 1 << 24
+    else:
+        raise TypeError(f"integer-threshold bits are int32 (uint32 pattern) "
+                        f"or int16 (uint16 pattern), got {bits.dtype}")
+    return u < _select5_int(x, ts, lim)
 
 
 def kernel_table(rule: str, beta: float) -> np.ndarray:
@@ -176,10 +219,19 @@ def metropolis_table_f32(beta) -> list:
     return [np.float32(math.exp(-2.0 * float(beta) * x)) for x in _X_VALUES]
 
 
+def metropolis_thresholds_u24(beta) -> list:
+    """Integer acceptance thresholds: flip iff (bits >> 8) < t[(x+4)/2]."""
+    return thresholds_u24(metropolis_table_f32(beta))
+
+
 def heat_bath_table_f32(beta) -> list:
     """p_up[k] = f32 sigmoid(2*beta*nn) for nn = 2k-4 — P(new spin = +1)."""
     return [np.float32(1.0 / (1.0 + math.exp(-2.0 * float(beta) * nn)))
             for nn in _X_VALUES]
+
+
+def heat_bath_thresholds_u24(beta) -> list:
+    return thresholds_u24(heat_bath_table_f32(beta))
 
 
 def metropolis_acceptance(nn: torch.Tensor, sigma: torch.Tensor, beta,
@@ -234,6 +286,12 @@ def _metropolis_flip_bits(sigma, nn, bits, beta):
     return _metropolis_kernel_form(float(beta))(sigma, nn.float(), bits)
 
 
+def _metropolis_flip_bits_int(sigma, nn, bits, beta):
+    x = nn * sigma  # lattice dtype, exact
+    flips = _int_compare(bits, metropolis_thresholds_u24(beta), x)
+    return torch.where(flips, -sigma, sigma)
+
+
 # ---------------------------------------------------------------------------
 # Heat-bath (Glauber) forms
 # ---------------------------------------------------------------------------
@@ -268,6 +326,13 @@ def _heat_bath_flip_bits(sigma, nn, bits, beta):
     return _heat_bath_kernel_form(float(beta))(sigma, nn.float(), bits)
 
 
+def _heat_bath_flip_bits_int(sigma, nn, bits, beta):
+    up = _int_compare(bits, heat_bath_thresholds_u24(beta),
+                      nn.to(sigma.dtype))
+    one = torch.ones((), dtype=sigma.dtype, device=sigma.device)
+    return torch.where(up, one, -one)
+
+
 # ---------------------------------------------------------------------------
 # Registry contents
 # ---------------------------------------------------------------------------
@@ -276,6 +341,7 @@ metropolis_lut = register_rule(UpdateRule(
     name="metropolis_lut",
     flip_probs=_metropolis_flip_probs("lut"),
     flip_bits=_metropolis_flip_bits,
+    flip_bits_int=_metropolis_flip_bits_int,
     kernel_form=_metropolis_kernel_form,
     table=metropolis_table_f32,
     supports_field=True,        # field forces the exp path internally
@@ -285,15 +351,26 @@ metropolis_exp = register_rule(UpdateRule(
     name="metropolis_exp",
     flip_probs=_metropolis_flip_probs("exp"),
     flip_bits=_metropolis_flip_bits,
+    flip_bits_int=_metropolis_flip_bits_int,
     kernel_form=_metropolis_kernel_form,
     table=metropolis_table_f32,
     supports_field=True,
+))
+
+metropolis_int = register_rule(UpdateRule(
+    name="metropolis_int",
+    flip_probs=_metropolis_flip_probs("lut"),
+    flip_bits=_metropolis_flip_bits,
+    flip_bits_int=_metropolis_flip_bits_int,
+    kernel_form=_metropolis_kernel_form,
+    table=metropolis_table_f32,
 ))
 
 heat_bath = register_rule(UpdateRule(
     name="heat_bath",
     flip_probs=_heat_bath_flip_probs,
     flip_bits=_heat_bath_flip_bits,
+    flip_bits_int=_heat_bath_flip_bits_int,
     kernel_form=_heat_bath_kernel_form,
     table=heat_bath_table_f32,
     supports_field=True,

@@ -1,0 +1,253 @@
+"""Process grids: the port's counterpart of ``launch.mesh.make_mesh``.
+
+A JAX mesh names the axes of a device array, ``shard_map`` runs one copy
+of a program per device, and ``lax.axis_index`` tells each copy where it
+sits. Here every rank of a ``torch.distributed`` group is one shard. A
+:class:`DeviceGrid` holds the grid's shape and axis names, this rank's
+coordinates (the rank laid out row-major over the shape), the torch device
+its blocks live on, and whether a process group carries its collectives:
+
+* :meth:`DeviceGrid.axis_index` flattens a tuple of axes as
+  ``lax.axis_index`` does (the first axis slowest);
+* :meth:`DeviceGrid.psum` is ``lax.psum`` over the whole grid: an
+  ``all_reduce(SUM)`` over the group, the identity with no group;
+* :meth:`DeviceGrid.send` is ``lax.ppermute`` along one ring of the grid:
+  rank ``k`` of the ring receives the plane of rank ``k - delta``
+  (``batch_isend_irecv``), the identity when the ring has one rank;
+* :meth:`DeviceGrid.local_block` / :meth:`DeviceGrid.gather` move between
+  a global tensor and the rank blocks under a *placement*: one entry per
+  leading tensor dim, the axes that shard it or None (the port's
+  ``PartitionSpec``).
+
+The group is the default one (gloo on CPU tensors, NCCL on the card) and
+its world size must equal the grid's shard count. ``counters`` counts the
+collectives a grid issued. :func:`run_ranks` starts a function on N gloo
+ranks of CPU tensors (the launcher's ``--devices N`` and the tests).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import shutil
+import tempfile
+
+import torch
+import torch.distributed as dist
+
+counters = {"all_reduce": 0, "send": 0, "gather": 0}
+
+
+def reset_counters() -> None:
+    for name in counters:
+        counters[name] = 0
+
+
+def as_axes(axes) -> tuple:
+    """Axis names as a tuple (None -> (), a name -> (name,))."""
+    if axes is None:
+        return ()
+    if isinstance(axes, str):
+        return (axes,)
+    return tuple(axes)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a rank's blocks live on: ``device`` if given, else the
+    CUDA device of this rank (one card per rank), or an error when there
+    is none."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "the port runs on the CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch path")
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceGrid:
+    """This rank's place on a process grid of ``shape`` named ``axes``."""
+    shape: tuple
+    axes: tuple
+    rank: int
+    device: torch.device
+    distributed: bool = False   # a process group carries the collectives
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def coords(self) -> tuple:
+        """This rank's coordinates, row-major over ``shape``."""
+        return self.coords_of(self.rank)
+
+    def coords_of(self, rank: int) -> tuple:
+        out = []
+        for n in reversed(self.shape):
+            out.append(rank % n)
+            rank //= n
+        return tuple(reversed(out))
+
+    def rank_of(self, coords) -> int:
+        rank = 0
+        for n, c in zip(self.shape, coords):
+            rank = rank * n + c
+        return rank
+
+    def _dims(self, axes) -> list:
+        return [self.axes.index(a) for a in as_axes(axes)]
+
+    def axis_size(self, axes) -> int:
+        """Shards along ``axes`` (a name or a tuple; 1 for none)."""
+        return math.prod(self.shape[i] for i in self._dims(axes))
+
+    def axis_index(self, axes, coords=None) -> int:
+        """Position along ``axes`` of this rank (or of ``coords``), the
+        axes flattened first-slowest as ``lax.axis_index`` does."""
+        coords = self.coords if coords is None else coords
+        idx = 0
+        for i in self._dims(axes):
+            idx = idx * self.shape[i] + coords[i]
+        return idx
+
+    def _ring_rank(self, axes, index: int) -> int:
+        """The rank at position ``index`` along ``axes`` that shares this
+        rank's coordinates on every other axis."""
+        coords = list(self.coords)
+        for i in reversed(self._dims(axes)):
+            coords[i] = index % self.shape[i]
+            index //= self.shape[i]
+        return self.rank_of(coords)
+
+    # -- collectives --------------------------------------------------------
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of ``x`` over every rank (``lax.psum`` over the grid)."""
+        if not self.distributed:
+            return x
+        buf = x.detach().reshape(1).clone()
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+        counters["all_reduce"] += 1
+        return buf.reshape(x.shape)
+
+    def send(self, plane: torch.Tensor, axes, delta: int) -> torch.Tensor:
+        """Shift ``plane`` ``delta`` hops along the ring of ``axes``: this
+        rank receives the plane of the rank ``delta`` hops behind it."""
+        n = self.axis_size(axes)
+        if n == 1:
+            return plane
+        k = self.axis_index(axes)
+        dst = self._ring_rank(axes, (k + delta) % n)
+        src = self._ring_rank(axes, (k - delta) % n)
+        out_plane = plane.contiguous()
+        in_plane = torch.empty_like(out_plane)
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, out_plane, dst),
+            dist.P2POp(dist.irecv, in_plane, src)])
+        for req in reqs:
+            req.wait()
+        counters["send"] += 1
+        return in_plane
+
+    # -- global tensors and rank blocks -------------------------------------
+
+    def _block_view(self, full: torch.Tensor, placement, coords):
+        out = full
+        for dim, axes in enumerate(placement):
+            n = self.axis_size(axes)
+            if n > 1:
+                size = full.shape[dim] // n
+                out = out.narrow(dim, self.axis_index(axes, coords) * size,
+                                 size)
+        return out
+
+    def local_block(self, full: torch.Tensor, placement) -> torch.Tensor:
+        """This rank's block of the global ``full`` under ``placement``."""
+        return self._block_view(full, placement, self.coords).contiguous()
+
+    def global_shape(self, local_shape, placement) -> tuple:
+        shape = list(local_shape)
+        for dim, axes in enumerate(placement):
+            shape[dim] *= self.axis_size(axes)
+        return tuple(shape)
+
+    def gather(self, local: torch.Tensor, placement, dst=None):
+        """The global tensor from every rank's block: on every rank
+        (``dst=None``), or on rank ``dst`` only (None elsewhere)."""
+        if not self.distributed:
+            return local
+        local = local.contiguous()
+        counters["gather"] += 1
+        if dst is None:
+            blocks = [torch.empty_like(local) for _ in range(self.size)]
+            dist.all_gather(blocks, local)
+        else:
+            blocks = ([torch.empty_like(local) for _ in range(self.size)]
+                      if self.rank == dst else None)
+            dist.gather(local, blocks, dst=dst)
+            if self.rank != dst:
+                return None
+        full = local.new_empty(self.global_shape(local.shape, placement))
+        for r, blk in enumerate(blocks):
+            self._block_view(full, placement, self.coords_of(r)).copy_(blk)
+        return full
+
+
+def make_grid(shape: tuple, axes: tuple, device=None) -> DeviceGrid:
+    """This rank's :class:`DeviceGrid`. With a process group initialised,
+    its world size must equal the shard count; without one the grid has
+    one shard. A grid never shrinks to fit."""
+    shape = tuple(int(n) for n in shape)
+    axes = tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"grid shape {shape} and axes {axes} differ in "
+                         "length")
+    n = math.prod(shape)
+    if dist.is_initialized():
+        world = dist.get_world_size()
+        if world != n:
+            raise ValueError(f"a {shape} grid has {n} shards but the "
+                             f"process group has {world} ranks")
+        device = resolve_device(device)
+        if dist.get_backend() == "nccl" and device.type != "cuda":
+            raise ValueError(f"the process group's backend is nccl, which "
+                             f"carries no {device.type} tensors")
+        grid = DeviceGrid(shape, axes, dist.get_rank(), device,
+                          distributed=True)
+    elif n != 1:
+        raise ValueError(f"a {shape} grid has {n} shards and needs a "
+                         "process group of as many ranks; none is "
+                         "initialised")
+    else:
+        grid = DeviceGrid(shape, axes, 0, resolve_device(device))
+    return grid
+
+
+def _rank_entry(rank: int, world: int, tmp: str, fn, args) -> None:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/init",
+                            rank=rank, world_size=world)
+    try:
+        out = fn(*args)
+        if rank == 0:
+            torch.save(out, os.path.join(tmp, "result.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, world: int, *args):
+    """Run ``fn(*args)`` on ``world`` gloo ranks, each a spawned process
+    with the default process group initialised, and return rank 0's
+    result. ``fn`` must be importable (a module-level function)."""
+    import torch.multiprocessing as mp
+    tmp = tempfile.mkdtemp(prefix="ranks_")
+    try:
+        mp.start_processes(_rank_entry, args=(world, tmp, fn, args),
+                           nprocs=world, start_method="spawn")
+        return torch.load(os.path.join(tmp, "result.pt"),
+                          weights_only=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)

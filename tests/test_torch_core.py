@@ -52,8 +52,10 @@ def test_registry_names_and_aliases():
     assert R.get_rule("metropolis") is R.metropolis_lut
     assert R.get_rule("exp") is R.metropolis_exp
     assert R.get_rule("glauber") is R.heat_bath
+    assert R.get_rule("int") is R.metropolis_int
     assert set(R.rule_names()) == {"metropolis_lut", "metropolis_exp",
-                                   "heat_bath"}
+                                   "metropolis_int", "heat_bath"}
+    assert R.rule_names() == JR.rule_names()
     with pytest.raises(ValueError, match="unknown update rule"):
         R.get_rule("wolff")
     with pytest.raises(ValueError):
@@ -336,19 +338,25 @@ def test_sweep_compact_measured_matches_jax_and_observables(hw, bs):
 
 @pytest.mark.parametrize("every,burnin", [(1, 0), (3, 5)])
 def test_accumulate_matches_reference_order(every, burnin):
-    """Moments in the reference's f32 operation order (op by op), m**4 as
-    the square of the square."""
+    """Moments in the reference's f32 operation order as XLA compiles it
+    (the products fused into the Kahan subtractions), m**4 as the square
+    of the square. The op-by-op order differs from it on these samples."""
     rng = np.random.default_rng(9)
     ms = rng.uniform(-1, 1, 120).astype(np.float32)
     es = rng.uniform(-2, -1, 120).astype(np.float32)
-    jmom, tmom = JM.init_moments(), M.init_moments()
+    jacc = jax.jit(JM.accumulate, static_argnums=(4, 5))
+    jmom, opmom, tmom = JM.init_moments(), JM.init_moments(), \
+        M.init_moments()
     for i in range(120):
-        jmom = JM.accumulate(jmom, ms[i], es[i], jnp.int32(i), every, burnin)
+        jmom = jacc(jmom, ms[i], es[i], jnp.int32(i), every, burnin)
+        opmom = JM.accumulate(opmom, ms[i], es[i], jnp.int32(i), every,
+                              burnin)
         tmom = M.accumulate(tmom, torch.tensor(ms[i]), torch.tensor(es[i]),
                             i, every, burnin)
     for name, a, b in zip(M.Moments._fields, jmom, tmom):
         assert np.asarray(a) == b.numpy(), name
     assert M.finalize(tmom) == JM.finalize(jmom)
+    assert any(np.asarray(a) != np.asarray(b) for a, b in zip(jmom, opmom))
 
 
 @pytest.mark.parametrize("every,burnin", [(1, 0), (2, 3)])

@@ -213,9 +213,10 @@ def test_invalid_configs_raise_the_reference_errors(bad, hint):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(pipeline="opt"),
-    dict(topology="mesh", mesh_shape=(2, 2)),
-    dict(dims=3, size=8, block_size=0, topology="mesh", mesh_shape=(2, 2)),
+    dict(algorithm="swendsen_wang", topology="mesh", mesh_shape=(1, 1)),
+    dict(model="potts", q=3, topology="mesh", mesh_shape=(1, 1)),
+    dict(model="potts", q=3, algorithm="wolff", topology="mesh",
+         mesh_shape=(1, 1)),
     dict(algorithm="wolff", topology="mesh", mesh_shape=(2, 2)),
     dict(model="potts", q=3, topology="mesh", mesh_shape=(2, 2)),
     dict(model="potts", q=3, algorithm="swendsen_wang", topology="mesh",
@@ -223,7 +224,8 @@ def test_invalid_configs_raise_the_reference_errors(bad, hint):
     dict(betas=(0.3, 0.4), topology="mesh", mesh_shape=(2, 1)),
 ])
 def test_unported_scenarios_raise(kw):
-    """The opt pipeline and every mesh scenario are not ported yet."""
+    """The cluster and Potts meshes and replica ensembles on a mesh are not
+    ported yet, whatever the grid (one rank or more)."""
     base = _cfg(**kw)
     if "betas" in kw:
         base.pop("beta")

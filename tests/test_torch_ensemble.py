@@ -261,6 +261,19 @@ def test_tempering_simulate_matches_jax(seed, dtype):
     assert 0.0 <= got.extra["swap_fraction"] <= 1.0
 
 
+@pytest.mark.parametrize("size,block", [(24, 4), (48, 8)])
+def test_tempering_at_a_side_not_a_power_of_two_matches_jax(size, block):
+    """With N not a power of two the energies E * N are not exact, where a
+    fused E_i * N - E_j * N could part from the port's two rounded
+    products: the swap decisions (many accepted), the series and the final
+    replicas stay bitwise the reference's compiled run."""
+    got, want = _both(3, size=size, block_size=block,
+                      betas=beta_ladder(0.95, 1.1, 6), n_sweeps=40,
+                      ensemble="tempering", exchange_every=2)
+    _assert_same(got, want)
+    assert got.extra["swap_fraction"] > 0.2
+
+
 def test_swap_decisions_match_jax():
     """The swap round itself, on replicas whose energies straddle each
     other: accepted pairs and the permuted stack, round after round."""
