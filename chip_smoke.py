@@ -6,19 +6,26 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. the card's name and power limit, from ``nvidia-smi``;
-2. build both CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` each, started together) and time the build;
-3. hold each kernel bitwise against its plain PyTorch version on the card:
-   both colours, both rules, bf16 and f32, bs 16, 32 and 128, square and
-   non-square tile grids including mr = 1; and the card's plain version
-   against the CPU's at one small shape;
+2. build both CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` each, started together; each holds an operand form and a
+   keyed form of its kernel) and time the build, with registers and spills;
+3. hold every form bitwise against its plain PyTorch version on the card:
+   both colours, both rules, bf16 and f32, bs 12, 16, 24, 32, 64 and 128
+   (12 and 24 take the generic instantiation), square and non-square tile
+   grids including mr = 1, and operands that are not 16-byte aligned;
+   each keyed form also against ``color_bits`` fed to the operand kernel;
+   the kernels' device hash (``ising_threefry_bits``) against
+   ``random._bits_lanes`` at counter 0 and across 2**32; and the card's
+   plain version against the CPU's at one small shape;
 4. the main path at full size: ``IsingEngine(EngineConfig(size=20480,
    beta=0.4406868, backend=b, hot=True)).simulate(0)`` for b in pallas and
    pallas_lines, measured, with every launch count reset just before and
-   read just after (2 per sweep for the backend's kernel); the two
-   backends' final states bitwise equal; the kernel path at 256^2 on the
-   card equal to the CPU plain path (state and series); the "chain"
-   scenario at 4096^2;
+   read just after (2 per sweep for the backend's keyed kernel, 0 for every
+   other form); the two backends' final states bitwise equal; the explicit-
+   bits path (``ops.update_color`` fed ``ops.color_bits``, the operand
+   forms, 2 launches per sweep) equal to the keyed sweeps at 20480^2; the
+   kernel path at 256^2 on the card equal to the CPU plain path (state and
+   series); the "chain" scenario at 4096^2;
 5. every other ported scenario at a small size, card == CPU bitwise
    (state, series, moments, extras): ensemble (bf16, f32), tempering
    (with accepted swaps), 3-D
@@ -36,24 +43,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    moments): ``"mesh"`` (one-rank grid) and ``"opt"`` on the xla paper
    pipeline, the xla opt pipeline and ``pallas_lines``, measured
    (Metropolis, bf16) and not (heat-bath, f32), at 256^2 (bs 16), and
-   ``"mesh3d"`` at 16^3; the lines kernel bitwise against its plain
-   version with halo lines that differ from the local torus roll (an edge
+   ``"mesh3d"`` at 16^3; both lines forms bitwise against their plain
+   versions with halo lines that differ from the local torus roll (an edge
    provider of negated lines), at a small shape and the main path's;
 8. a one-rank NCCL process group, then the same ``mesh`` / ``opt`` paths at
    20480^2 (80 x 80 blocks of bs 128, bf16, beta 0.4406868, hot, 3
-   sweeps), measured and not: 2 lines-kernel launches per sweep on
+   sweeps), measured and not: 2 keyed lines-kernel launches per sweep on
    ``pallas_lines`` and none elsewhere, the measured runs' stats
    all-reduced over the group, flips/ns and peak memory; ``mesh3d`` timed
    at 512^3; the launcher (``repro_torch.launch.simulate``) at 4096^2 on
    one rank: 6 sweeps with a checkpoint every 3, a resume to 9, equal
    bitwise to a straight 9-sweep run;
-9. CUDA-event timings at the main path's shapes: each kernel against its
-   bound and its plain version, color_bits, blocked_stats, sweeps per
-   second without measurement (flips/ns), peak memory.
+9. CUDA-event timings at the main path's shapes: each of the four forms
+   (the lines forms with their halo lines made outside the timed
+   launches) against its bound and its plain version (the keyed forms'
+   bound is bytes or integer issue, whichever is larger, from the
+   instructions per site in the built library's SASS and the card's SM
+   clock), color_bits, blocked_stats, and the kernel path's sweeps per
+   second measured and not (flips/ns), peak memory.
 
 Every path of phases 4-8 runs with the kernel launch counts set to 0 just
-before and read just after: 2 per sweep for the kernel backends, 0 for
-the scenarios that run no kernel.
+before and read just after: 2 per sweep for the form the path runs, 0 for
+the other forms and for the scenarios that run no kernel.
 
 It prints one JSON line of kernel records, then the card line, then the
 contract line ``{"ok": true, "device": {...}}`` last. Without a CUDA device,
@@ -64,7 +75,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-import statistics
 import subprocess
 import sys
 import time
@@ -82,16 +92,32 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12            # H100 SXM, f32 outside the tensor cores
 FLOPS_PER_SITE = 10          # 3 adds, 1 multiply, <= 4 compares, 1 convert
 
+TILES_CU = "src/repro_torch/kernels/csrc/checkerboard_tiles.cu"
+LINES_CU = "src/repro_torch/kernels/csrc/checkerboard_lines.cu"
+# name -> source, the TPU kernel it replaces, keyed form or not
 KERNELS = {
     "update_color_tiles": dict(
-        backend="pallas", source="src/repro_torch/kernels/csrc/"
-        "checkerboard_tiles.cu",
-        replaces="src/repro/kernels/checkerboard.py:208"),
+        source=TILES_CU, replaces="src/repro/kernels/checkerboard.py:208",
+        keyed=False),
     "update_color_lines": dict(
-        backend="pallas_lines", source="src/repro_torch/kernels/csrc/"
-        "checkerboard_lines.cu",
-        replaces="src/repro/kernels/checkerboard.py:169"),
+        source=LINES_CU, replaces="src/repro/kernels/checkerboard.py:169",
+        keyed=False),
+    "update_color_tiles_keyed": dict(
+        source=TILES_CU, replaces="src/repro/kernels/checkerboard.py:208",
+        keyed=True),
+    "update_color_lines_keyed": dict(
+        source=LINES_CU, replaces="src/repro/kernels/checkerboard.py:169",
+        keyed=True),
 }
+# kernel backend -> (the keyed form its sweeps launch, its operand form)
+BACKENDS = {"pallas": ("update_color_tiles_keyed", "update_color_tiles"),
+            "pallas_lines": ("update_color_lines_keyed",
+                             "update_color_lines")}
+# Issue rates of the SM's pipes, per clock per SM, compute capability 9.0
+# (CUDA C++ Programming Guide, arithmetic instruction throughput): 32-bit
+# integer add, logic, shift, compare and select 64; integer multiply-add
+# (IMAD, on the FMA pipe) 64; f32 add, multiply, fma 128.
+INT_PER_CLOCK, IMAD_PER_CLOCK, F32_PER_CLOCK = 64, 64, 128
 
 
 def log(*args):
@@ -107,29 +133,29 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median CUDA-event time of one call of ``fn``."""
+    """CUDA-event time of one call of ``fn``: two events around ``reps``
+    calls back to back, so the card does not wait on a call's host work
+    (the wrapper's checks and launch) when that is shorter than the call's
+    device work."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def kernel_fns():
+    """name -> (wrapper, plain version, keyed)."""
     from repro_torch.kernels import checkerboard as kern
-    return {"update_color_tiles": (kern.update_color_tiles,
-                                   kern.update_color_tiles_plain),
-            "update_color_lines": (kern.update_color_lines,
-                                   kern.update_color_lines_plain)}
+    return {name: (getattr(kern, name), getattr(kern, name + "_plain"),
+                   spec["keyed"]) for name, spec in KERNELS.items()}
 
 
 def blocked_state(seed, mr, mc, bs, dtype, device):
@@ -153,36 +179,65 @@ def exact_diff(a, b) -> float:
 
 
 def phase_build() -> float:
+    import re
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build()
     seconds = time.perf_counter() - t0
     for name, text in logs.items():
+        # registers of the main path's instantiations (bs 128, bf16) and
+        # the largest spill of any kernel in the library
+        fn, regs, spills = None, {}, 0
         for line in text.splitlines():
-            if "registers" in line or name + ":" in line or "spill" in line:
-                log("  nvcc", line.strip())
+            m = re.search(r"entry function '(\w+)'", line)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                regs[fn] = int(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spills = max(spills, int(m.group(1)))
+        main = {f: r for f, r in regs.items()
+                if "Li128E" in f and "13__nv_bfloat16" in f}
+        log(f"  nvcc {text.splitlines()[0]}; {len(regs)} kernels, largest "
+            f"spill {spills} bytes; bs 128 bf16 registers {main}")
     log(f"build: {len(logs)} libraries in {seconds:.2f} s")
     return seconds
 
 
 def phase_kernels_vs_plain(errs: dict) -> None:
-    """Each kernel against its plain version on the card, bitwise."""
+    """Every form against its plain version on the card, bitwise; the keyed
+    forms also against color_bits fed to the operand kernels; the device
+    hash against the port's threefry."""
     import torch
+    from repro_torch import random as jr
+    from repro_torch.kernels import checkerboard as kern
     grids = [(1, 1), (2, 3), (1, 4), (3, 1)]
+    fns = kernel_fns()
+    operand = {"update_color_tiles_keyed": kern.update_color_tiles,
+               "update_color_lines_keyed": kern.update_color_lines}
     n = 0
     for dtype in (torch.bfloat16, torch.float32):
-        for bs in (16, 32, 128):
+        for bs in (12, 16, 24, 32, 64, 128):
             for grid in grids:
                 qb, bits = blocked_state(n, *grid, bs, dtype, "cuda")
+                key = jr.fold_in(jr.PRNGKey(n), 2)
+                kbits = jr.bits(key, (2,) + tuple(qb.shape[1:]), "cuda")
                 for color in (0, 1):
                     for rule in ("metropolis_lut", "heat_bath"):
                         for beta in (0.1, BETA, 1.5):
-                            for name, (fn, plain) in kernel_fns().items():
-                                got = fn(qb.clone(), bits, beta, color, rule)
-                                want = plain(qb.clone(), bits, beta, color,
+                            for name, (fn, plain, keyed) in fns.items():
+                                arg = key if keyed else bits
+                                got = fn(qb.clone(), arg, beta, color, rule)
+                                want = plain(qb.clone(), arg, beta, color,
                                              rule)
                                 torch.cuda.synchronize()
                                 err = exact_diff(got, want)
+                                if keyed:
+                                    err = max(err, exact_diff(got, operand[
+                                        name](qb.clone(), kbits, beta,
+                                              color, rule)))
                                 errs[name] = max(errs[name], err)
                                 if err:
                                     raise AssertionError(
@@ -191,52 +246,87 @@ def phase_kernels_vs_plain(errs: dict) -> None:
                                         f"{rule} beta={beta} err={err}")
                 n += 1
     log(f"kernels vs plain on the card: {n} shapes x 2 colours x 2 rules x "
-        "3 betas, bitwise equal")
+        "3 betas x 4 forms, bitwise equal; keyed == operand on color_bits")
+    # operands that are not 16-byte aligned take the generic instantiation
+    qb, bits = blocked_state(98, 2, 3, 16, torch.bfloat16, "cuda")
+    key = jr.PRNGKey(98)
+    for name, (fn, plain, keyed) in fns.items():
+        buf = torch.empty(qb.numel() + 1, dtype=qb.dtype, device="cuda")
+        odd = buf[1:].view(qb.shape)
+        odd.copy_(qb)
+        arg = key if keyed else bits
+        if exact_diff(fn(odd, arg, BETA, 1), plain(qb.clone(), arg, BETA, 1)):
+            raise AssertionError(f"{name}: unaligned operands != plain")
+    log("unaligned operands (generic instantiation) == plain, every form")
+    # the kernels' device hash against the port's threefry
+    key = jr.fold_in(jr.PRNGKey(4), 11)
+    for start in (0, 2 ** 32 - 5):
+        got = kern.threefry_bits(key, start, 1 << 20, "cuda")
+        want = jr._as_int32(jr._bits_lanes(key, start, start + (1 << 20),
+                                           "cuda"))
+        if not torch.equal(got, want):
+            raise AssertionError(f"ising_threefry_bits != _bits_lanes at "
+                                 f"start {start}")
+    log("ising_threefry_bits == random._bits_lanes, 2**20 counters from 0 "
+        "and from 2**32 - 5")
     # the card's plain version against the CPU's, one small shape
     qb, bits = blocked_state(99, 2, 3, 16, torch.bfloat16, "cuda")
-    for name, (_, plain) in kernel_fns().items():
+    for name, (_, plain, keyed) in fns.items():
+        arg = key if keyed else bits
         for color in (0, 1):
-            dev = plain(qb.clone(), bits, BETA, color)
-            cpu = plain(qb.cpu().clone(), bits.cpu(), BETA, color)
+            dev = plain(qb.clone(), arg, BETA, color)
+            cpu = plain(qb.cpu().clone(), key if keyed else bits.cpu(), BETA,
+                        color)
             if exact_diff(dev.cpu(), cpu):
                 raise AssertionError(f"{name} plain: card != CPU")
     log("plain versions: card == CPU at [4, 2, 3, 16, 16]")
 
 
-def phase_main_path(launches: dict) -> dict:
-    """The port's main path at full size, through the public entry point."""
-    import torch
-    from repro_torch.api import EngineConfig, IsingEngine
+def _read_launches(label: str, want: dict) -> dict:
+    """The launch counts since the last reset; ``want`` gives the forms
+    that must have launched, every other form must read 0."""
     from repro_torch.kernels import checkerboard as kern
+    counts = dict(kern.launches)
+    if counts != {name: want.get(name, 0) for name in counts}:
+        raise AssertionError(f"{label}: launches {counts}, want {want}")
+    return counts
+
+
+def phase_main_path(launches: dict) -> dict:
+    """The port's main path at full size, through the public entry point;
+    then the explicit-bits path (the operand forms) against the keyed
+    sweeps at the same size."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.api import EngineConfig, IsingEngine
+    from repro_torch.core import sampler
+    from repro_torch.kernels import checkerboard as kern
+    from repro_torch.kernels import ops
     finals, out = {}, {}
     torch.cuda.reset_peak_memory_stats()
-    for name, spec in KERNELS.items():
+    for backend, (keyed, _) in BACKENDS.items():
         cfg = EngineConfig(size=SIZE, beta=BETA, n_sweeps=MAIN_SWEEPS,
-                           backend=spec["backend"], hot=True,
-                           block_size=BS)
+                           backend=backend, hot=True, block_size=BS)
         eng = IsingEngine(cfg)
         kern.reset_launches()
         t0 = time.perf_counter()
         res = eng.simulate(0)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = dict(kern.launches)
-        if counts[name] != 2 * MAIN_SWEEPS:
-            raise AssertionError(f"{spec['backend']}: {name} launched "
-                                 f"{counts[name]} times, want "
-                                 f"{2 * MAIN_SWEEPS}")
-        launches[name] = counts[name]
+        counts = _read_launches(f"main path {backend}",
+                                {keyed: 2 * MAIN_SWEEPS})
+        launches[keyed] = counts[keyed]
         m, e = res.magnetization, res.energy
         if not (torch.isfinite(m).all() and torch.isfinite(e).all()
                 and float(m.abs().max()) <= 1.0
                 and -2.0 <= float(e.min()) and float(e.max()) <= 2.0):
-            raise AssertionError(f"{spec['backend']}: bad series {m} {e}")
+            raise AssertionError(f"{backend}: bad series {m} {e}")
         if res.state.shape != (4, SIZE // 2, SIZE // 2):
             raise AssertionError(f"bad state shape {tuple(res.state.shape)}")
-        finals[name] = res.state
-        out[name] = dict(seconds=seconds, m=m.tolist(), e=e.tolist(),
-                         moments=res.moments)
-        log(f"main path {spec['backend']}: {SIZE}^2, {MAIN_SWEEPS} sweeps "
+        finals[backend] = res.state
+        out[backend] = dict(seconds=seconds, m=m.tolist(), e=e.tolist(),
+                            moments=res.moments)
+        log(f"main path {backend}: {SIZE}^2, {MAIN_SWEEPS} sweeps "
             f"in {seconds:.3f} s, launches {counts}, m[-1]={float(m[-1])}, "
             f"E[-1]={float(e[-1])}")
     a, b = finals.values()
@@ -246,6 +336,30 @@ def phase_main_path(launches: dict) -> dict:
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     log(f"main path peak device memory: {out['peak_bytes'] / 2**30:.2f} GiB")
     del finals, a, b
+    # The explicit-bits path: ops.update_color fed ops.color_bits launches
+    # the operand forms; it must end where the keyed sweeps end.
+    key = jr.PRNGKey(9)
+    quads = sampler.init_state(jr.PRNGKey(8), SIZE, SIZE, device="cuda")
+    for backend, (keyed, operand) in BACKENDS.items():
+        want = ops.run_sweeps(quads, key, n_sweeps=MAIN_SWEEPS, beta=BETA,
+                              bs=BS, backend=backend)
+        qb = ops._block_quads(quads, BS)
+        kern.reset_launches()
+        for step in range(MAIN_SWEEPS):
+            for color in (0, 1):
+                bits = ops.color_bits(key, step, color, qb.shape[1:], "cuda")
+                qb = ops.update_color(qb, bits, BETA, color, backend)
+        torch.cuda.synchronize()
+        counts = _read_launches(f"explicit bits {backend}",
+                                {operand: 2 * MAIN_SWEEPS})
+        launches[operand] = counts[operand]
+        if exact_diff(ops._unblock_quads(qb), want):
+            raise AssertionError(f"{backend}: the operand form on color_bits "
+                                 "!= the keyed sweeps at full size")
+        log(f"explicit-bits path {backend}: {SIZE}^2, {MAIN_SWEEPS} sweeps, "
+            f"launches {counts}; == the keyed sweeps, bitwise")
+        del want, qb, bits
+    del quads
     return out
 
 
@@ -614,12 +728,8 @@ GRID_PATHS = [
 
 
 def _check_launches(label: str, cfg, sweeps: int) -> None:
-    from repro_torch.kernels import checkerboard as kern
-    want = 2 * sweeps if cfg.backend == "pallas_lines" else 0
-    if (kern.launches["update_color_lines"] != want
-            or kern.launches["update_color_tiles"]):
-        raise AssertionError(f"{label}: launches {kern.launches}, want "
-                             f"{want} of update_color_lines")
+    _read_launches(label, {"update_color_lines_keyed": 2 * sweeps}
+                   if cfg.backend == "pallas_lines" else {})
 
 
 def phase_grid_small() -> None:
@@ -651,10 +761,11 @@ def phase_grid_small() -> None:
 
 
 def phase_lines_halo(errs: dict) -> None:
-    """The lines kernel fed halo lines that are not the local torus roll
-    (each line negated), bitwise against its plain version on the same
+    """Both lines forms fed halo lines that are not the local torus roll
+    (each line negated), bitwise against their plain versions on the same
     lines, at a small shape and the main path's."""
     import torch
+    from repro_torch import random as jr
     from repro_torch.core import checkerboard as cb
     from repro_torch.kernels import checkerboard as kern
 
@@ -662,29 +773,34 @@ def phase_lines_halo(errs: dict) -> None:
         return -cb.default_edges(xb, side)
 
     mr = SIZE // 2 // BS
+    key = jr.PRNGKey(17)
+    forms = (("update_color_lines", kern.update_color_lines,
+              kern.update_color_lines_plain, None),
+             ("update_color_lines_keyed", kern.update_color_lines_keyed,
+              kern.update_color_lines_keyed_plain, key))
     for grid, bs in (((2, 3), 16), ((mr, mr), BS)):
         qb, bits = blocked_state(17, *grid, bs, torch.bfloat16, "cuda")
         for color in (0, 1):
             for rule in ("metropolis_lut", "heat_bath"):
                 lines = kern._lines(qb, color, negated)
-                got = kern.update_color_lines(qb.clone(), bits, BETA, color,
-                                              rule, edges=negated)
-                want = kern.update_color_lines_plain(qb.clone(), bits, BETA,
-                                                     color, rule, lines)
-                torus = kern.update_color_lines(qb.clone(), bits, BETA,
-                                                color, rule)
-                torch.cuda.synchronize()
-                err = exact_diff(got, want)
-                errs["update_color_lines"] = max(errs["update_color_lines"],
-                                                 err)
-                if err or not exact_diff(got, torus):
-                    raise AssertionError(
-                        f"lines kernel with halo lines {grid} bs={bs} "
-                        f"color={color} {rule}: err={err}, differs from "
-                        f"the torus run: {bool(exact_diff(got, torus))}")
-        del qb, bits, got, want, torus
-    log("lines kernel with non-torus halo lines (negated) == plain version "
-        "on the same lines, bitwise, at [4, 2, 3, 16, 16] and "
+                for name, fn, plain, k in forms:
+                    arg = bits if k is None else k
+                    got = fn(qb.clone(), arg, BETA, color, rule,
+                             edges=negated)
+                    want = plain(qb.clone(), arg, BETA, color, rule, lines)
+                    torus = fn(qb.clone(), arg, BETA, color, rule)
+                    torch.cuda.synchronize()
+                    err = exact_diff(got, want)
+                    errs[name] = max(errs[name], err)
+                    if err or not exact_diff(got, torus):
+                        raise AssertionError(
+                            f"{name} with halo lines {grid} bs={bs} "
+                            f"color={color} {rule}: err={err}, differs from "
+                            f"the torus run: {bool(exact_diff(got, torus))}")
+                    del got, want, torus
+        del qb, bits
+    log("both lines forms with non-torus halo lines (negated) == plain "
+        "versions on the same lines, bitwise, at [4, 2, 3, 16, 16] and "
         f"[4, {mr}, {mr}, {BS}, {BS}]; the torus run differs")
 
 
@@ -812,44 +928,189 @@ def phase_launcher(size: int = 4096) -> None:
         f"{time.perf_counter() - t0:.1f} s for the three runs")
 
 
-def bound(name: str, qb, bits) -> tuple:
+def sm_clock_hz() -> float:
+    """The SM clock the card may run at (``clocks.max.sm``), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.split()[0]) * 1e6
+
+
+# SASS opcodes by the pipe that issues them (Hopper): the integer ALU (64
+# lanes per clock per SM); the FMA pipe's integer multiply-adds (IMAD and its
+# MOV / IADD / SHL forms, 64) and f32 arithmetic, compares, selects and
+# int-to-float conversions (128); the conversion unit (16). The f32 compares
+# and selects are kept off the ALU: counted there, the keyed kernels' row
+# loops would need more ALU issue than their measured time allows. Every
+# instruction also takes an issue slot: 4 warp schedulers x 32 lanes = 128.
+_INT_OPS = {"IADD3", "IADD", "VIADD", "LOP3", "LOP", "SHF", "SHL", "SHR",
+            "ISETP", "SEL", "PRMT", "LEA", "IMNMX", "VIMNMX", "IABS", "PLOP3",
+            "MOV", "P2R", "R2P", "BMSK", "SGXT"}
+_IMAD_OPS = {"IMAD", "IMUL"}
+_F32_OPS = {"FFMA", "FADD", "FMUL", "FSETP", "FSEL", "FMNMX", "I2FP", "F2FP",
+            "FSWZADD", "HFMA2", "HADD2", "HMUL2"}
+_CONV_OPS = {"I2F", "F2I", "F2F", "I2I", "FRND"}
+CONV_PER_CLOCK, ISSUE_PER_CLOCK = 16, 128
+
+
+def _sass_loops(lib: Path, match) -> dict:
+    """Opcode counts of the longest loop of the first kernel in ``lib``
+    whose mangled name satisfies ``match``: the instructions from a backward
+    branch's target to the branch (``cuobjdump -sass``)."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    funcs, cur, pending = {}, None, []
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), ([], {}))
+            pending = []
+            continue
+        if cur is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for label in pending:
+                cur[1][label] = addr
+            pending = []
+            cur[0].append((addr, m.group(2)))
+    names = [f for f in funcs if match(f)]
+    if not names:
+        raise AssertionError(f"no matching kernel in {lib.name}'s SASS")
+    ins, labels = funcs[names[0]]
+    best = ()
+    for addr, op in ins:
+        m = re.search(r"\bBRA\b.*?(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))", op)
+        if not m:
+            continue
+        target = labels[m.group(1)] if m.group(1) else int(m.group(2), 16)
+        body = [o for a, o in ins if target <= a <= addr]
+        if target <= addr and len(body) > len(best):
+            best = body
+    if not best:
+        raise AssertionError(f"no loop in {names[0]}'s SASS")
+    counts = {}
+    for op in best:
+        opcode = re.sub(r"^@!?U?P\w+\s+", "", op).split()[0]
+        counts[opcode] = counts.get(opcode, 0) + 1
+    return dict(function=names[0], instructions=len(best), opcodes=counts)
+
+
+def keyed_issue(name: str) -> dict:
+    """Instructions per site of a keyed kernel's row loop at the main
+    path's instantiation (bs 128, bf16, colour 0), by pipe: one trip
+    updates 2 x 8 sites."""
+    from repro_torch.kernels import build
+    lib, halo = (("checkerboard_tiles", "TileHalo")
+                 if name == "update_color_tiles_keyed"
+                 else ("checkerboard_lines", "LineHalo"))
+    loop = _sass_loops(build.library_path(lib), lambda f: (
+        "half_sweep_vec" in f and "13__nv_bfloat16Li128ELi0ELb1E" in f
+        and halo in f))
+    per = {"int": 0, "imad": 0, "f32": 0, "conv": 0, "other": 0}
+    for opcode, n in loop["opcodes"].items():
+        base = opcode.split(".")[0]
+        kind = ("imad" if base in _IMAD_OPS else "int" if base in _INT_OPS
+                else "f32" if base in _F32_OPS
+                else "conv" if base in _CONV_OPS else "other")
+        per[kind] += n
+    per["all"] = loop["instructions"]
+    sites = 2 * 8
+    return dict(loop, sites_per_trip=sites,
+                per_site={k: v / sites for k, v in per.items()})
+
+
+def bound(name: str, qb, bits, issue=None, clock_hz=None, sms=None) -> tuple:
     """(bound_ms, bound_by) of one launch: each input read once, each
-    output written once; about 10 f32 operations per updated site."""
+    output written once, against the HBM rate; and the operations, against
+    the card's rate for them: about 10 f32 operations per site for an
+    operand form, the SASS count of each pipe (``issue``) for a keyed form,
+    whose busier pipe (or the issue slots) bounds it."""
     nq = qb[0].numel()
     e = qb.element_size()
-    moved = 4 * nq * e + bits.numel() * bits.element_size() + 2 * nq * e
-    if name == "update_color_lines":
+    moved = 4 * nq * e + 2 * nq * e
+    if not KERNELS[name]["keyed"]:
+        moved += bits.numel() * bits.element_size()
+    if name.startswith("update_color_lines"):
         _, mr, mc, bs, _ = qb.shape
         moved += 4 * mr * mc * bs * e
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * nq * FLOPS_PER_SITE / F32_FLOPS * 1e3
+    if issue is None:
+        t_ops = 2 * nq * FLOPS_PER_SITE / F32_FLOPS * 1e3
+    else:
+        p = issue["per_site"]
+        clocks = max(p["int"] / INT_PER_CLOCK,
+                     p["imad"] / IMAD_PER_CLOCK + p["f32"] / F32_PER_CLOCK,
+                     p["conv"] / CONV_PER_CLOCK, p["all"] / ISSUE_PER_CLOCK)
+        t_ops = 2 * nq * clocks / (sms * clock_hz) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_timing(launches: dict, errs: dict) -> tuple:
+def _timed_run(backend: str, measure: bool, sweeps: int) -> float:
+    """Seconds of a synchronised ``IsingEngine.run`` at 20480^2 after a
+    warm-up run of one sweep."""
     import torch
+    from repro_torch import random as jr
     from repro_torch.api import EngineConfig, IsingEngine
+    cfg = EngineConfig(size=SIZE, beta=BETA, n_sweeps=sweeps,
+                       backend=backend, hot=True, measure=measure,
+                       block_size=BS)
+    eng = IsingEngine(cfg)
+    state = eng.init(jr.PRNGKey(5))
+    IsingEngine(dataclasses.replace(cfg, n_sweeps=1)).run(state,
+                                                          jr.PRNGKey(4))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(state, jr.PRNGKey(6))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_timing(launches: dict, errs: dict, sweeps: int = 20) -> tuple:
+    import torch
     from repro_torch import random as jr
     from repro_torch.core import measure
     from repro_torch.kernels import checkerboard as kern
     from repro_torch.kernels import ops
     mr = mc = SIZE // 2 // BS
     qb, bits = blocked_state(7, mr, mc, BS, torch.bfloat16, "cuda")
+    key = jr.fold_in(jr.PRNGKey(7), 3)
+    clock_hz = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     records = []
-    for name, (fn, plain) in kernel_fns().items():
+    for name, (fn, plain, keyed) in kernel_fns().items():
+        arg = key if keyed else bits
         # the kernel at the main path's shape, once more against its plain
         # version before it is timed
-        got = fn(qb.clone(), bits, BETA, 0)
-        want = plain(qb.clone(), bits, BETA, 0)
+        got = fn(qb.clone(), arg, BETA, 0)
+        want = plain(qb.clone(), arg, BETA, 0)
         errs[name] = max(errs[name], exact_diff(got, want))
         if errs[name]:
             raise AssertionError(f"{name} != plain at full size")
         del got, want
         work = qb.clone()
-        ms = time_ms(lambda: fn(work, bits, BETA, 0), reps=20)
-        plain_ms = time_ms(lambda: plain(work, bits, BETA, 0), reps=3,
+        kw, call_ms = {}, None
+        if name.startswith("update_color_lines"):
+            # the kernel alone: its four halo lines made once, outside the
+            # timed launches (a colour-0 edge provider of cached lines);
+            # the wrapper's own line making is timed beside it
+            cached = dict(zip(("north", "west", "south", "east"),
+                              kern._lines(qb, 0)))
+            kw = dict(edges=lambda xb, side: cached[side])
+            call_ms = time_ms(lambda: fn(work, arg, BETA, 0), reps=20)
+        ms = time_ms(lambda: fn(work, arg, BETA, 0, **kw), reps=50)
+        plain_ms = time_ms(lambda: plain(work, arg, BETA, 0), reps=3,
                            warmup=1)
-        b_ms, b_by = bound(name, qb, bits)
+        issue = keyed_issue(name) if keyed else None
+        b_ms, b_by = bound(name, qb, bits, issue, clock_hz, sms)
         del work
         records.append(dict(
             name=name, route="cuda", source=KERNELS[name]["source"],
@@ -858,30 +1119,35 @@ def phase_timing(launches: dict, errs: dict) -> tuple:
             bound_by=b_by, library_ms=None))
         log(f"time {name}: {ms:.4f} ms per launch, bound {b_ms:.4f} ms "
             f"({b_by}), {b_ms / ms:.1%} of bound; plain {plain_ms:.3f} ms; "
-            f"{qb[0].numel() * 2 / ms / 1e6:.1f} flips/ns")
+            f"{qb[0].numel() * 2 / ms / 1e6:.1f} flips/ns"
+            + (f"; the wrapper with its halo lines {call_ms:.4f} ms"
+               if call_ms else ""))
+        if issue:
+            per = {k: round(v, 4) for k, v in issue["per_site"].items()}
+            log(f"  SASS {issue['function']}: row loop {issue['instructions']}"
+                f" instructions per {issue['sites_per_trip']} sites; per "
+                f"site {per}; SM clock {clock_hz / 1e6:.0f} MHz x {sms} SMs;"
+                f" opcodes {issue['opcodes']}")
     kern.reset_launches()
-    key = jr.PRNGKey(3)
     bits_ms = time_ms(lambda: ops.color_bits(key, 0, 0, qb.shape[1:],
                                              "cuda"), reps=3, warmup=1)
     stats_ms = time_ms(lambda: measure.blocked_stats(qb), reps=5)
     log(f"time color_bits [2, {mr}, {mc}, {BS}, {BS}]: {bits_ms:.3f} ms per "
         f"colour; blocked_stats: {stats_ms:.3f} ms per sweep")
     del qb, bits
-    cfg = EngineConfig(size=SIZE, beta=BETA, n_sweeps=MAIN_SWEEPS,
-                       backend="pallas", hot=True, measure=False,
-                       block_size=BS)
-    eng = IsingEngine(cfg)
-    state = eng.init(jr.PRNGKey(5))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.run(state, jr.PRNGKey(6))
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    log(f"time measurement-free pallas run {SIZE}^2 x {MAIN_SWEEPS} sweeps: "
-        f"{seconds:.4f} s, {MAIN_SWEEPS * SIZE ** 2 / seconds / 1e9:.4f} "
-        "flips/ns end to end")
-    return records, dict(bits_ms=bits_ms, stats_ms=stats_ms,
-                         free_s=seconds)
+    runs = {}
+    for backend, (keyed, _) in BACKENDS.items():
+        for measured in (False, True):
+            kern.reset_launches()
+            seconds = _timed_run(backend, measured, sweeps)
+            _read_launches(f"timed {backend}", {keyed: 2 * (sweeps + 1)})
+            runs[backend, measured] = seconds
+            log(f"time {'measured' if measured else 'measurement-free'} "
+                f"{backend} run {SIZE}^2 x {sweeps} sweeps: {seconds:.4f} s,"
+                f" {seconds / sweeps * 1e3:.3f} ms per sweep, "
+                f"{sweeps * SIZE ** 2 / seconds / 1e9:.4f} flips/ns end to "
+                "end")
+    return records, dict(bits_ms=bits_ms, stats_ms=stats_ms, runs=runs)
 
 
 def main() -> int:

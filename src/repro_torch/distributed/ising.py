@@ -16,8 +16,10 @@ Three forms of the colour update, as in the reference:
   compare (``update_rules.flip_bits_int``), decisions bitwise those of the
   f32 LUT on the same bits;
 * ``backend="pallas_lines"``: one launch per colour of the CUDA lines
-  kernel (:func:`repro_torch.kernels.checkerboard.update_color_lines`),
-  its four halo lines from the edge provider over the group.
+  kernel's keyed form
+  (:func:`repro_torch.kernels.checkerboard.update_color_lines_keyed`,
+  which draws the colour's bits in the kernel), its four halo lines from
+  the edge provider over the group.
 
 RNG: each rank folds the chain key with its linear grid index, then with
 (step, colour), so no random bits cross ranks. ``rng="rbg"``
@@ -37,6 +39,7 @@ from repro_torch.core import measure
 from repro_torch.core import update_rules
 from repro_torch.distributed import decomp
 from repro_torch.distributed import halo
+from repro_torch.kernels import checkerboard as kern
 from repro_torch.kernels import ops as kops
 
 
@@ -115,10 +118,9 @@ def _local_color_update(qb, key, step, color, cfg, edges,
     k = jr.fold_in(jr.fold_in(key, step), color)
     blk = tuple(qb.shape[1:])
     if cfg.backend == "pallas_lines":
-        bits = jr.bits(k, (2,) + blk, qb.device)
-        qb = kops.update_color(qb, bits, cfg.beta, color,
-                               backend="pallas_lines", edges=edges,
-                               rule=cfg.bits_rule())
+        # the keyed lines kernel draws bits(k, (2,) + blk) itself
+        qb = kern.update_color_lines_keyed(qb, k, cfg.beta, color,
+                                           cfg.bits_rule(), edges)
         return (qb, None) if return_stats else qb
     a, b, c, d = qb.unbind(0)
     kh = L.kernel_compact(a.shape[-1], a.dtype, a.device)

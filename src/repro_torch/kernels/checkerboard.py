@@ -1,8 +1,7 @@
 """The two checkerboard half-sweep kernels: CUDA wrappers and plain versions.
 
 Each kernel updates one colour of blocked compact quads
-``qb[4, mr, mc, bs, bs]`` in place, from uint32 bits ``[2, mr, mc, bs, bs]``
-held as an int32 bit pattern, and returns ``qb``:
+``qb[4, mr, mc, bs, bs]`` in place and returns ``qb``:
 
 * :func:`update_color_tiles` replaces the Pallas kernel
   ``update_color_pallas`` (``src/repro/kernels/checkerboard.py``, body
@@ -10,36 +9,53 @@ held as an int32 bit pattern, and returns ``qb``:
   Source: ``csrc/checkerboard_tiles.cu``.
 * :func:`update_color_lines` replaces ``update_color_pallas_lines`` (body
   ``_update_kernel_lines``): the four halo lines come from
-  ``core.checkerboard.edge_lines`` outside the kernel.
-  Source: ``csrc/checkerboard_lines.cu``.
+  ``core.checkerboard.edge_lines`` (or a grid's edge provider) outside the
+  kernel. Source: ``csrc/checkerboard_lines.cu``.
 
-Both are memory-bound stencils: per colour they read four quads and two
-bit planes and write two quads, 2.10 GB at L = 20480 in bf16, 0.63 ms at
-the H100's 3.35 TB/s. No single PyTorch call computes this function.
+Each kernel has two forms from one CUDA body
+(``csrc/checkerboard_common.cuh``):
+
+* the operand form takes uint32 bits ``[2, mr, mc, bs, bs]`` held as an
+  int32 bit pattern; it is bound by memory (four quads and two bit planes
+  read, two quads written: 2.10 GB per colour at L = 20480 in bf16, 0.63 ms
+  at the H100's 3.35 TB/s);
+* the keyed form (:func:`update_color_tiles_keyed`,
+  :func:`update_color_lines_keyed`) takes the colour key
+  ``fold_in(fold_in(key, step), color)`` instead and draws the same bits in
+  the kernel: threefry2x32 of each site's flat index, as
+  ``random.bits(key, (2, mr, mc, bs, bs))`` lays them out. It moves 1.26 GB
+  per colour and is bound by integer issue (the hash).
+
+No single PyTorch call computes this function.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor,
 and only there, it runs the plain PyTorch version beside it, which repeats
 the kernel's arithmetic (four-neighbour adds in f32, then the rule's
-select and compare). Each wrapper counts its launches in a plain integer,
-``launches[name]``.
+select and compare; the keyed form's plain version draws the bits with
+``random.bits`` first). Each wrapper counts its launches in a plain
+integer, ``launches[name]``.
 """
 from __future__ import annotations
 
 import ctypes
+import numbers
 
 import torch
 
+from repro_torch import random as jr
 from repro_torch.core import checkerboard as cb
 from repro_torch.core import lattice as L
 from repro_torch.core import update_rules
 from repro_torch.kernels import build
 
-launches = {"update_color_tiles": 0, "update_color_lines": 0}
+launches = {"update_color_tiles": 0, "update_color_lines": 0,
+            "update_color_tiles_keyed": 0, "update_color_lines_keyed": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _RULE_CODE = {"metropolis_lut": 0, "metropolis_exp": 0, "heat_bath": 1}
-# Threads per block in the kernels (kThreads); gridDim.y caps the tile area.
-_THREADS, _MAX_GRID_Y = 256, 65535
+# The launch grid: blockIdx.y is the tile row, blockIdx.x a tile column
+# (or a group of them).
+_MAX_GRID_Y, _MAX_GRID_X = 65535, 2 ** 31 - 1
 
 
 def reset_launches() -> None:
@@ -52,21 +68,12 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 
-def _check(qb: torch.Tensor, bits: torch.Tensor, color: int, rule: str):
+def _check_quads(qb: torch.Tensor, color: int, rule: str) -> str:
     if qb.dim() != 5 or qb.shape[0] != 4 or qb.shape[3] != qb.shape[4]:
         raise ValueError(f"quads must be [4, mr, mc, bs, bs], got "
                          f"{tuple(qb.shape)}")
-    if tuple(bits.shape) != (2,) + tuple(qb.shape[1:]):
-        raise ValueError(f"bits must be [2, mr, mc, bs, bs] = "
-                         f"{(2,) + tuple(qb.shape[1:])}, got "
-                         f"{tuple(bits.shape)}")
     if qb.dtype not in _DTYPE_CODE:
         raise TypeError(f"quads must be float32 or bfloat16, got {qb.dtype}")
-    if bits.dtype != torch.int32:
-        raise TypeError(f"bits must be int32 (a uint32 bit pattern), got "
-                        f"{bits.dtype}")
-    if bits.device != qb.device:
-        raise ValueError(f"bits on {bits.device}, quads on {qb.device}")
     if color not in (0, 1):
         raise ValueError(f"color must be 0 or 1, got {color}")
     canonical = update_rules.get_rule(rule).name
@@ -75,17 +82,41 @@ def _check(qb: torch.Tensor, bits: torch.Tensor, color: int, rule: str):
     return canonical
 
 
-def _check_cuda(qb: torch.Tensor, bits: torch.Tensor, *lines):
+def _check(qb: torch.Tensor, bits: torch.Tensor, color: int, rule: str):
+    rule = _check_quads(qb, color, rule)
+    if tuple(bits.shape) != (2,) + tuple(qb.shape[1:]):
+        raise ValueError(f"bits must be [2, mr, mc, bs, bs] = "
+                         f"{(2,) + tuple(qb.shape[1:])}, got "
+                         f"{tuple(bits.shape)}")
+    if bits.dtype != torch.int32:
+        raise TypeError(f"bits must be int32 (a uint32 bit pattern), got "
+                        f"{bits.dtype}")
+    if bits.device != qb.device:
+        raise ValueError(f"bits on {bits.device}, quads on {qb.device}")
+    return rule
+
+
+def _check_key(key) -> tuple:
+    """A colour key: a tuple of two uint32 words (not a key batch)."""
+    if not (isinstance(key, tuple) and len(key) == 2
+            and all(isinstance(k, numbers.Integral) and not isinstance(k, bool)
+                    and 0 <= k <= 0xFFFFFFFF for k in key)):
+        raise ValueError(f"key must be one colour key (k0, k1) of two uint32 "
+                         f"words, got {key!r}")
+    return int(key[0]), int(key[1])
+
+
+def _check_cuda(qb: torch.Tensor, *operands):
     if qb.device.type != "cuda":
         raise ValueError(f"the kernels run on CUDA or (plain) CPU tensors, "
                          f"got {qb.device}")
-    for t in (qb, bits) + lines:
+    for t in (qb,) + operands:
         if not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
-    bs, tiles = qb.shape[-1], qb.shape[1] * qb.shape[2]
-    if -(-bs * bs // _THREADS) > _MAX_GRID_Y or tiles >= 2 ** 31:
-        raise ValueError(f"grid {tuple(qb.shape[1:3])} x bs {bs} exceeds the "
-                         "launch grid")
+    mr, mc = qb.shape[1], qb.shape[2]
+    if mr > _MAX_GRID_Y or mc > _MAX_GRID_X:
+        raise ValueError(f"tile grid {mr} x {mc} exceeds the launch grid "
+                         f"({_MAX_GRID_Y} tile rows)")
 
 
 def _table_args(rule: str, beta: float):
@@ -93,12 +124,14 @@ def _table_args(rule: str, beta: float):
             for v in update_rules.kernel_table(rule, beta)]
 
 
-def _kernel(lib_name: str, fn_name: str, n_ptrs: int):
+def _kernel(lib_name: str, fn_name: str, n_ptrs: int, keyed: bool = False):
     """The C entry point of a kernel library, with its signature set:
-    ``n_ptrs`` pointers, six ints, five table floats, the stream."""
+    the quads' pointer, the key's two words (keyed form), the other
+    ``n_ptrs - 1`` pointers, six ints, five table floats, the stream."""
     fn = getattr(build.load(lib_name), fn_name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_uint32] * (2 * keyed)
+                   + [ctypes.c_void_p] * (n_ptrs - 1) + [ctypes.c_int] * 6
                    + [ctypes.c_float] * 5 + [ctypes.c_void_p])
     return fn
 
@@ -155,17 +188,29 @@ def update_color_tiles(qb, bits, beta: float, color: int,
     if qb.device.type == "cpu":
         return update_color_tiles_plain(qb, bits, beta, color, rule)
     _check_cuda(qb, bits)
-    fn = _kernel("checkerboard_tiles", "ising_update_tiles", 2)
-    _, mr, mc, bs, _ = qb.shape
-    with torch.cuda.device(qb.device):
-        err = fn(_ptr(qb), _ptr(bits), mr, mc, bs, color, _RULE_CODE[rule],
-                 _DTYPE_CODE[qb.dtype], *_table_args(rule, beta),
-                 _stream(qb.device))
-    if err:
-        raise RuntimeError(f"ising_update_tiles launch failed: "
-                           f"cudaError {err}")
-    launches["update_color_tiles"] += 1
-    return qb
+    return _launch("update_color_tiles", qb, (bits,), color, rule, beta)
+
+
+def update_color_tiles_keyed_plain(qb, key, beta: float, color: int,
+                                   rule: str = "metropolis_lut"):
+    """Plain version of the keyed tile-fetch kernel: ``random.bits`` under
+    the colour key, then the operand form's plain version."""
+    bits = jr.bits(key, (2,) + tuple(qb.shape[1:]), qb.device)
+    return update_color_tiles_plain(qb, bits, beta, color, rule)
+
+
+def update_color_tiles_keyed(qb, key, beta: float, color: int,
+                             rule: str = "metropolis_lut"):
+    """One colour's half-sweep of ``qb`` in place (tile-fetch halo), the
+    bits drawn in the kernel under the colour key ``(k0, k1)``
+    (``fold_in(fold_in(key, step), color)``)."""
+    rule = _check_quads(qb, color, rule)
+    key = _check_key(key)
+    if qb.device.type == "cpu":
+        return update_color_tiles_keyed_plain(qb, key, beta, color, rule)
+    _check_cuda(qb)
+    return _launch("update_color_tiles_keyed", qb, (), color, rule, beta,
+                   key)
 
 
 # ---------------------------------------------------------------------------
@@ -219,14 +264,89 @@ def update_color_lines(qb, bits, beta: float, color: int,
     if qb.device.type == "cpu":
         return update_color_lines_plain(qb, bits, beta, color, rule, lines)
     _check_cuda(qb, bits, *lines)
-    fn = _kernel("checkerboard_lines", "ising_update_lines", 6)
+    return _launch("update_color_lines", qb, (bits,) + lines, color, rule,
+                   beta)
+
+
+def update_color_lines_keyed_plain(qb, key, beta: float, color: int,
+                                   rule: str = "metropolis_lut", lines=None):
+    """Plain version of the keyed edge-line kernel: ``random.bits`` under
+    the colour key, then the operand form's plain version."""
+    bits = jr.bits(key, (2,) + tuple(qb.shape[1:]), qb.device)
+    return update_color_lines_plain(qb, bits, beta, color, rule, lines)
+
+
+def update_color_lines_keyed(qb, key, beta: float, color: int,
+                             rule: str = "metropolis_lut", edges=None):
+    """One colour's half-sweep of ``qb`` in place (edge-line halo), the
+    bits drawn in the kernel under the colour key ``(k0, k1)``."""
+    rule = _check_quads(qb, color, rule)
+    key = _check_key(key)
+    lines = _lines(qb, color, edges)
+    if qb.device.type == "cpu":
+        return update_color_lines_keyed_plain(qb, key, beta, color, rule,
+                                              lines)
+    _check_cuda(qb, *lines)
+    return _launch("update_color_lines_keyed", qb, lines, color, rule, beta,
+                   key)
+
+
+# ---------------------------------------------------------------------------
+# Launching
+# ---------------------------------------------------------------------------
+
+# wrapper name -> (library, C entry point)
+_ENTRY = {
+    "update_color_tiles": ("checkerboard_tiles", "ising_update_tiles"),
+    "update_color_tiles_keyed": ("checkerboard_tiles",
+                                 "ising_update_tiles_keyed"),
+    "update_color_lines": ("checkerboard_lines", "ising_update_lines"),
+    "update_color_lines_keyed": ("checkerboard_lines",
+                                 "ising_update_lines_keyed"),
+}
+
+
+def _launch(name: str, qb, operands: tuple, color: int, rule: str,
+            beta: float, key=None):
+    """Launch the kernel of wrapper ``name`` on ``qb`` (its other tensor
+    operands in the C entry's order; ``key`` for a keyed form) and count
+    the launch."""
+    lib, entry = _ENTRY[name]
+    keyed = key is not None
+    fn = _kernel(lib, entry, 1 + len(operands), keyed)
     _, mr, mc, bs, _ = qb.shape
     with torch.cuda.device(qb.device):
-        err = fn(_ptr(qb), _ptr(bits), *(_ptr(t) for t in lines), mr, mc,
-                 bs, color, _RULE_CODE[rule], _DTYPE_CODE[qb.dtype],
+        err = fn(_ptr(qb), *(key if keyed else ()),
+                 *(_ptr(t) for t in operands), mr, mc, bs, color,
+                 _RULE_CODE[rule], _DTYPE_CODE[qb.dtype],
                  *_table_args(rule, beta), _stream(qb.device))
     if err:
-        raise RuntimeError(f"ising_update_lines launch failed: "
-                           f"cudaError {err}")
-    launches["update_color_lines"] += 1
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    launches[name] += 1
     return qb
+
+
+def threefry_bits(key, start: int, n: int, device) -> torch.Tensor:
+    """The 32-bit draws of counters ``[start, start + n)`` under ``key``
+    (int32 bit patterns): on a CUDA device the kernels' own device hash
+    (``ising_threefry_bits``, uncounted: no sweep calls it), on the CPU
+    ``random._bits_lanes``. It holds the hash against the port's RNG on the
+    card."""
+    k0, k1 = _check_key(key)
+    device = torch.device(device)
+    if device.type == "cpu":
+        return jr._as_int32(jr._bits_lanes((k0, k1), start, start + n,
+                                           device))
+    if device.type != "cuda":
+        raise ValueError(f"threefry_bits runs on CUDA or CPU, got {device}")
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    fn = getattr(build.load("checkerboard_tiles"), "ising_threefry_bits")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32,
+                   ctypes.c_uint64, ctypes.c_int64, ctypes.c_void_p]
+    with torch.cuda.device(device):
+        err = fn(_ptr(out), k0, k1, start, n, _stream(device))
+    if err:
+        raise RuntimeError(f"ising_threefry_bits launch failed: "
+                           f"cudaError {err}")
+    return out

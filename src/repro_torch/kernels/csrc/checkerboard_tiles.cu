@@ -2,108 +2,128 @@
 // kernel update_color_pallas / _update_kernel
 // (src/repro/kernels/checkerboard.py). That kernel fetched the torus
 // neighbour tiles again through shifted BlockSpec index maps and summed
-// neighbours with four K-hat matmuls on the MXU; here each thread reads the
-// one neighbour element it needs, from its own tile or from the
-// neighbouring one, and sums four values.
+// neighbours with four K-hat matmuls on the MXU; here each thread sums four
+// values, and what lies beyond the tile (one row above or below a run, one
+// element beside the row) is read from the torus-neighbour tile itself.
 //
-// Bound: memory. Per colour the kernel reads the two active and two passive
-// quads and the two bit planes, and writes the two active quads: at
-// L = 20480 in bf16 that is 2.10 GB, 0.63 ms at 3.35 TB/s. It does about
-// 10 flops per site, far below the card's rate.
+// Bound, at L = 20480 in bf16 ([4, 80, 80, 128, 128]):
+// * operand form (bits from the [2, mr, mc, bs, bs] operand): memory. It
+//   reads two active and two passive quads and the two bit planes and
+//   writes the two active quads, 2.10 GB per colour, 0.63 ms at 3.35 TB/s;
+// * keyed form (threefry in the kernel): integer issue. It moves 1.26 GB
+//   (0.38 ms) but hashes 2.1e8 sites at about 70 integer instructions each,
+//   about 0.9 ms at 64 per clock per SM on 132 SMs at 1.98 GHz
+//   (chip_smoke.py counts the instructions from this library's SASS).
+// The design (checkerboard_common.cuh): 8 sites per thread along j with
+// 16-byte accesses and lane shuffles for the j +- 1 neighbours, each thread
+// marching 8 rows with the row above and below in registers, bs templated
+// with no runtime division, and in the keyed form the 16 hashes of a row
+// interleaved.
 //
-// Design: one thread per site (r, c, i, j) of both active quads, threads
-// along j so that each warp reads and writes contiguous lines. The update
-// is in place: an active site reads only passive quads and its own spin,
-// so no thread reads what another writes.
+// Also here: ising_threefry_bits, the same device hash over a flat counter
+// range, so the card can be held against repro_torch.random._bits_lanes.
 #include "checkerboard_common.cuh"
 
 namespace ising {
 
+// Beyond the tile: the torus-neighbour tiles of the same quads.
 template <typename T>
-__global__ void update_tiles_kernel(T* __restrict__ q,
-                                    const uint32_t* __restrict__ bits, int mr,
-                                    int mc, int bs, int color, int heat_bath,
-                                    Table tab) {
-  const int area = bs * bs;
-  const int e = blockIdx.y * blockDim.x + threadIdx.x;
-  if (e >= area) return;
-  const int64_t tile = blockIdx.x;
-  const int r = (int)(tile / mc);
-  const int c = (int)(tile - (int64_t)r * mc);
-  const int i = e / bs;
-  const int j = e - i * bs;
-  const int64_t nq = (int64_t)mr * mc * area;  // elements per quad
+struct TileHalo {
+  int mr, mc, bs;
 
-  T* s0 = q + (color ? 1 : 0) * nq;
-  T* s1 = q + (color ? 2 : 3) * nq;
-  const T* p0 = q + (color ? 0 : 1) * nq;
-  const T* p1 = q + (color ? 3 : 2) * nq;
-  const int dx = color ? 1 : -1;
-  const int64_t here = tile * area + e;
-
-  // Column neighbours j + dx (of p0, for s0) and j - dx (of p1, for s1).
-  int64_t a0, a1;
-  {
-    const int j0 = j + dx;
-    if (j0 >= 0 && j0 < bs) {
-      a0 = here + dx;
-    } else {
-      const int cn = (c + dx + mc) % mc;
-      a0 = ((int64_t)r * mc + cn) * area + (int64_t)i * bs + (j0 + bs) % bs;
-    }
-    const int j1 = j - dx;
-    if (j1 >= 0 && j1 < bs) {
-      a1 = here - dx;
-    } else {
-      const int cn = (c - dx + mc) % mc;
-      a1 = ((int64_t)r * mc + cn) * area + (int64_t)i * bs + (j1 + bs) % bs;
-    }
+  __device__ __forceinline__ int64_t tile(int r, int c) const {
+    return ((int64_t)r * mc + c) * ((int64_t)bs * bs);
   }
-  // Row neighbours i - 1 (of p1, for s0) and i + 1 (of p0, for s1).
-  const int64_t b0 =
-      i > 0 ? here - bs
-            : ((int64_t)((r - 1 + mr) % mr) * mc + c) * area +
-                  (int64_t)(bs - 1) * bs + j;
-  const int64_t b1 = i < bs - 1
-                         ? here + bs
-                         : ((int64_t)((r + 1) % mr) * mc + c) * area + j;
+  // p1 row bs - 1 of the tile above (r - 1 on the torus).
+  __device__ __forceinline__ const T* row_above(const T* p1, int r, int c,
+                                                int j0) const {
+    const int ru = r == 0 ? mr - 1 : r - 1;
+    return p1 + tile(ru, c) + (int64_t)(bs - 1) * bs + j0;
+  }
+  // p0 row 0 of the tile below (r + 1 on the torus).
+  __device__ __forceinline__ const T* row_below(const T* p0, int r, int c,
+                                                int j0) const {
+    const int rd = r == mr - 1 ? 0 : r + 1;
+    return p0 + tile(rd, c) + j0;
+  }
+  // x at column j + D just off the tile: the first or last column of the
+  // tile c + D on the torus.
+  template <int D>
+  __device__ __forceinline__ T side(const T* x, int r, int c, int i) const {
+    const int cn = D < 0 ? (c == 0 ? mc - 1 : c - 1)
+                         : (c == mc - 1 ? 0 : c + 1);
+    return __ldg(x + tile(r, cn) + (int64_t)i * bs + (D < 0 ? bs - 1 : 0));
+  }
+  template <int DX>
+  __device__ __forceinline__ T side0(const T* p0, int r, int c, int i) const {
+    return side<DX>(p0, r, c, i);
+  }
+  template <int DX>
+  __device__ __forceinline__ T side1(const T* p1, int r, int c, int i) const {
+    return side<-DX>(p1, r, c, i);
+  }
+};
 
-  const float p0c = to_f32(p0[here]);
-  const float p1c = to_f32(p1[here]);
-  const float nn0 = p0c + to_f32(p0[a0]) + p1c + to_f32(p1[b0]);
-  const float nn1 = p1c + to_f32(p1[a1]) + p0c + to_f32(p0[b1]);
+struct MakeTileHalo {
+  template <typename T>
+  TileHalo<T> operator()(T, const Params<T>& p) const {
+    return TileHalo<T>{p.mr, p.mc, p.bs};
+  }
+};
 
-  s0[here] = from_f32<T>(
-      new_spin(to_f32(s0[here]), nn0, bits[here], heat_bath, tab));
-  s1[here] = from_f32<T>(
-      new_spin(to_f32(s1[here]), nn1, bits[nq + here], heat_bath, tab));
-}
-
-template <typename T>
-int launch(void* q, const void* bits, int mr, int mc, int bs, int color,
-           int heat_bath, Table tab, cudaStream_t stream) {
-  const int area = bs * bs;
-  dim3 grid((unsigned)((int64_t)mr * mc), (area + kThreads - 1) / kThreads);
-  update_tiles_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<T*>(q), static_cast<const uint32_t*>(bits), mr, mc, bs,
-      color, heat_bath, tab);
-  return (int)cudaGetLastError();
+__global__ void threefry_bits_kernel(uint32_t* __restrict__ out, Key key,
+                                     uint64_t start, int64_t n) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += stride) {
+    const uint64_t counter = start + (uint64_t)e;
+    uint32_t x0[1] = {(uint32_t)(counter >> 32)};
+    uint32_t x1[1] = {(uint32_t)counter};
+    threefry_bits<1>(key, x0, x1);
+    out[e] = x0[0];
+  }
 }
 
 }  // namespace ising
 
-// One colour's half-sweep of q[4][mr][mc][bs][bs], in place. Returns the
-// cudaError_t of the launch (0 on success).
+// One colour's half-sweep of q[4][mr][mc][bs][bs], in place, bits from the
+// [2][mr][mc][bs][bs] uint32 operand. Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int ising_update_tiles(void* q, const void* bits, int mr, int mc,
                                   int bs, int color, int heat_bath, int dtype,
                                   float t0, float t1, float t2, float t3,
                                   float t4, void* stream) {
   const ising::Table tab = {{t0, t1, t2, t3, t4}};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ising::kBFloat16)
-    return ising::launch<__nv_bfloat16>(q, bits, mr, mc, bs, color, heat_bath,
-                                        tab, s);
-  if (dtype == ising::kFloat32)
-    return ising::launch<float>(q, bits, mr, mc, bs, color, heat_bath, tab, s);
-  return (int)cudaErrorInvalidValue;
+  const bool vec_ok = ising::aligned16(q) && ising::aligned16(bits);
+  return ising::dispatch<false>(q, bits, mr, mc, bs, color, heat_bath, dtype,
+                                tab, ising::make_key(0, 0), vec_ok,
+                                ising::MakeTileHalo{}, stream);
+}
+
+// The same half-sweep with the bits drawn in the kernel: threefry2x32 under
+// the colour key (k0, k1) of each site's flat index in [2][mr][mc][bs][bs].
+extern "C" int ising_update_tiles_keyed(void* q, unsigned k0, unsigned k1,
+                                        int mr, int mc, int bs, int color,
+                                        int heat_bath, int dtype, float t0,
+                                        float t1, float t2, float t3,
+                                        float t4, void* stream) {
+  const ising::Table tab = {{t0, t1, t2, t3, t4}};
+  return ising::dispatch<true>(q, nullptr, mr, mc, bs, color, heat_bath,
+                               dtype, tab, ising::make_key(k0, k1),
+                               ising::aligned16(q), ising::MakeTileHalo{},
+                               stream);
+}
+
+// out[e] = the 32-bit draw of counter start + e under key (k0, k1), for
+// e < n: repro_torch.random._bits_lanes(key, start, start + n).
+extern "C" int ising_threefry_bits(void* out, unsigned k0, unsigned k1,
+                                   unsigned long long start, long long n,
+                                   void* stream) {
+  if (n <= 0) return 0;
+  const int64_t blocks = (n + ising::kThreads - 1) / ising::kThreads;
+  ising::threefry_bits_kernel<<<(unsigned)(blocks < 65535 ? blocks : 65535),
+                                ising::kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(out), ising::make_key(k0, k1), start, n);
+  return (int)cudaGetLastError();
 }

@@ -9,7 +9,10 @@ three backends:
 * ``ref``          — the plain oracle with identical bit-level semantics
 
 The backend names are the JAX package's; on a CUDA tensor the first two
-launch the CUDA kernels, on a CPU tensor their plain versions run.
+launch the CUDA kernels, on a CPU tensor their plain versions run. A sweep
+on them launches each kernel's keyed form, which draws the colour's bits in
+the kernel from the colour key; :func:`update_color` with explicit bits
+launches the operand form.
 """
 from __future__ import annotations
 
@@ -30,11 +33,15 @@ def _unblock_quads(qb: torch.Tensor) -> torch.Tensor:
     return torch.stack([L.unblock(qb[i]) for i in range(4)])
 
 
+def color_key(key, step: int, color: int):
+    """The key of one colour update: ``fold_in(fold_in(key, step), color)``."""
+    return jr.fold_in(jr.fold_in(key, step), color)
+
+
 def color_bits(key, step: int, color: int, shape, device="cpu"):
     """uint32 bits (int32 pattern) for the two active quads of one colour
-    update: ``bits(fold_in(fold_in(key, step), color), (2,) + shape)``."""
-    k = jr.fold_in(jr.fold_in(key, step), color)
-    return jr.bits(k, (2,) + tuple(shape), device)
+    update: ``bits(color_key(key, step, color), (2,) + shape)``."""
+    return jr.bits(color_key(key, step, color), (2,) + tuple(shape), device)
 
 
 def update_color(quads_blocked, bits, beta: float, color: int,
@@ -58,13 +65,23 @@ def update_color(quads_blocked, bits, beta: float, color: int,
     raise ValueError(f"unknown backend {backend!r}")
 
 
+# The kernels' keyed forms, which draw ``color_bits`` themselves.
+_KEYED = {"pallas": kern.update_color_tiles_keyed,
+          "pallas_lines": kern.update_color_lines_keyed}
+
+
 def sweep_blocked(qb, key, step: int, beta: float, backend: str,
                   rule: str = "metropolis_lut"):
     """One sweep of blocked quads [4, mr, mc, bs, bs]: black, then white,
-    each with its own ``color_bits``."""
+    each under its own ``color_key`` (the kernels draw the bits; ``ref``
+    takes ``color_bits``)."""
     for color in (0, 1):
-        bits = color_bits(key, step, color, qb.shape[1:], qb.device)
-        qb = update_color(qb, bits, beta, color, backend, rule=rule)
+        if backend in _KEYED:
+            qb = _KEYED[backend](qb, color_key(key, step, color), beta,
+                                 color, rule)
+        else:
+            bits = color_bits(key, step, color, qb.shape[1:], qb.device)
+            qb = update_color(qb, bits, beta, color, backend, rule=rule)
     return qb
 
 

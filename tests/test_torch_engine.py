@@ -90,7 +90,9 @@ def test_simulate_matches_jax_bitwise(backend, rule, measure):
                          measure)
     # CPU tensors run the plain versions: no kernel was launched
     assert kern.launches == {"update_color_tiles": 0,
-                             "update_color_lines": 0}
+                             "update_color_lines": 0,
+                             "update_color_tiles_keyed": 0,
+                             "update_color_lines_keyed": 0}
 
 
 def test_kernel_path_matches_pallas_interpret():

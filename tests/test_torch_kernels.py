@@ -81,7 +81,9 @@ def test_plain_kernels_match_jax_ref(grid, bs, jdt, tdt):
                                         color, rule)
             np.testing.assert_array_equal(got.float().numpy(), want)
     assert kern.launches == {"update_color_tiles": 0,
-                             "update_color_lines": 0}
+                             "update_color_lines": 0,
+                             "update_color_tiles_keyed": 0,
+                             "update_color_lines_keyed": 0}
 
 
 def test_plain_kernels_match_pallas_interpret():
