@@ -113,11 +113,23 @@ KERNELS = {
 BACKENDS = {"pallas": ("update_color_tiles_keyed", "update_color_tiles"),
             "pallas_lines": ("update_color_lines_keyed",
                              "update_color_lines")}
-# Issue rates of the SM's pipes, per clock per SM, compute capability 9.0
-# (CUDA C++ Programming Guide, arithmetic instruction throughput): 32-bit
-# integer add, logic, shift, compare and select 64; integer multiply-add
-# (IMAD, on the FMA pipe) 64; f32 add, multiply, fma 128.
-INT_PER_CLOCK, IMAD_PER_CLOCK, F32_PER_CLOCK = 64, 64, 128
+# Issue rates per clock per SM, compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput): 32-bit integer
+# add, logic and shift 64 (the integer ALU; an add may also issue on the
+# FMA pipe as IMAD.IADD, 64); f32 add, multiply, compare and select 128;
+# and 4 warp schedulers x 32 lanes = 128 instructions of any kind.
+INT_PER_CLOCK, F32_PER_CLOCK, ISSUE_PER_CLOCK = 64, 128, 128
+# What one site of a keyed form needs, counted from the function and not
+# from the compiler's schedule: threefry2x32's 20 rotations (funnel
+# shifts), its 21 xors (20 rounds and the output x0 ^ x1) and the
+# bits >> 8 shift, which only the integer ALU issues; its 27 adds (one a
+# round, the key word into x1 before each of the 5 groups of rounds, both
+# words of the last injection; an injection into x0 folds into the next
+# round's 3-input add), which either pipe may issue; and the Metropolis
+# rule's 15 f32 operations (the 3 adds of the sum, sigma * nn, 4 compares
+# and 4 selects for the table, the convert of bits >> 8 with its 2^-24
+# folded into the table, u < t and the new spin's select).
+KEYED_ALU_ONLY, KEYED_ADDS, KEYED_F32 = 20 + 21 + 1, 20 + 5 + 2, 15
 
 
 def log(*args):
@@ -936,104 +948,63 @@ def sm_clock_hz() -> float:
     return float(out.stdout.split()[0]) * 1e6
 
 
-# SASS opcodes by the pipe that issues them (Hopper): the integer ALU (64
-# lanes per clock per SM); the FMA pipe's integer multiply-adds (IMAD and its
-# MOV / IADD / SHL forms, 64) and f32 arithmetic, compares, selects and
-# int-to-float conversions (128); the conversion unit (16). The f32 compares
-# and selects are kept off the ALU: counted there, the keyed kernels' row
-# loops would need more ALU issue than their measured time allows. Every
-# instruction also takes an issue slot: 4 warp schedulers x 32 lanes = 128.
-_INT_OPS = {"IADD3", "IADD", "VIADD", "LOP3", "LOP", "SHF", "SHL", "SHR",
-            "ISETP", "SEL", "PRMT", "LEA", "IMNMX", "VIMNMX", "IABS", "PLOP3",
-            "MOV", "P2R", "R2P", "BMSK", "SGXT"}
-_IMAD_OPS = {"IMAD", "IMUL"}
-_F32_OPS = {"FFMA", "FADD", "FMUL", "FSETP", "FSEL", "FMNMX", "I2FP", "F2FP",
-            "FSWZADD", "HFMA2", "HADD2", "HMUL2"}
-_CONV_OPS = {"I2F", "F2I", "F2F", "I2I", "FRND"}
-CONV_PER_CLOCK, ISSUE_PER_CLOCK = 16, 128
-
-
-def _sass_loops(lib: Path, match) -> dict:
-    """Opcode counts of the longest loop of the first kernel in ``lib``
-    whose mangled name satisfies ``match``: the instructions from a backward
-    branch's target to the branch (``cuobjdump -sass``)."""
+def keyed_sass(name: str) -> dict:
+    """A diagnostic beside the keyed bound: the instructions of the longest
+    loop (a backward branch to its target) in ``cuobjdump -sass`` of the
+    keyed kernel at the main path's instantiation (bs 128, bf16, colour 0),
+    whose trips each update 2 x 8 sites; None where it is not found."""
     import re
     import shutil
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    funcs, cur, pending = {}, None, []
-    for line in text.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            cur = funcs.setdefault(m.group(1), ([], {}))
-            pending = []
-            continue
-        if cur is None:
-            continue
-        m = re.match(r"\s*(\.L_x_\d+):", line)
-        if m:
-            pending.append(m.group(1))
-            continue
-        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
-        if m:
-            addr = int(m.group(1), 16)
-            for label in pending:
-                cur[1][label] = addr
-            pending = []
-            cur[0].append((addr, m.group(2)))
-    names = [f for f in funcs if match(f)]
-    if not names:
-        raise AssertionError(f"no matching kernel in {lib.name}'s SASS")
-    ins, labels = funcs[names[0]]
-    best = ()
-    for addr, op in ins:
-        m = re.search(r"\bBRA\b.*?(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))", op)
-        if not m:
-            continue
-        target = labels[m.group(1)] if m.group(1) else int(m.group(2), 16)
-        body = [o for a, o in ins if target <= a <= addr]
-        if target <= addr and len(body) > len(best):
-            best = body
-    if not best:
-        raise AssertionError(f"no loop in {names[0]}'s SASS")
-    counts = {}
-    for op in best:
-        opcode = re.sub(r"^@!?U?P\w+\s+", "", op).split()[0]
-        counts[opcode] = counts.get(opcode, 0) + 1
-    return dict(function=names[0], instructions=len(best), opcodes=counts)
-
-
-def keyed_issue(name: str) -> dict:
-    """Instructions per site of a keyed kernel's row loop at the main
-    path's instantiation (bs 128, bf16, colour 0), by pipe: one trip
-    updates 2 x 8 sites."""
     from repro_torch.kernels import build
     lib, halo = (("checkerboard_tiles", "TileHalo")
                  if name == "update_color_tiles_keyed"
                  else ("checkerboard_lines", "LineHalo"))
-    loop = _sass_loops(build.library_path(lib), lambda f: (
-        "half_sweep_vec" in f and "13__nv_bfloat16Li128ELi0ELb1E" in f
-        and halo in f))
-    per = {"int": 0, "imad": 0, "f32": 0, "conv": 0, "other": 0}
-    for opcode, n in loop["opcodes"].items():
-        base = opcode.split(".")[0]
-        kind = ("imad" if base in _IMAD_OPS else "int" if base in _INT_OPS
-                else "f32" if base in _F32_OPS
-                else "conv" if base in _CONV_OPS else "other")
-        per[kind] += n
-    per["all"] = loop["instructions"]
-    sites = 2 * 8
-    return dict(loop, sites_per_trip=sites,
-                per_site={k: v / sites for k, v in per.items()})
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(build.library_path(lib))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    want = f"__nv_bfloat16Li128ELi0ELb1ENS_8{halo}"
+    body = text.split("Function : ")
+    func = next((f for f in body if f.startswith("_ZN5ising14half_sweep_vec")
+                 and want in f.split(None, 1)[0]), None)
+    if func is None:
+        return None
+    ins = [(int(a, 16), op) for a, op in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", func)]
+    labels = {k: int(a, 16) for k, a in re.findall(
+        r"(\.L_x_\d+):(?=(?:\s*\.L_x_\d+:)*\s*/\*([0-9a-f]{4,})\*/)", func)}
+    best = []
+    for addr, op in ins:
+        m = re.search(r"\bBRA\b.*?(?:\((\.L_x_\d+)\)|0x([0-9a-f]+))", op)
+        target = (addr + 1 if not m else int(m.group(2), 16) if m.group(2)
+                  else labels.get(m.group(1), addr + 1))
+        loop = [o for a, o in ins if target <= a <= addr]
+        if len(loop) > len(best):
+            best = loop
+    opcodes = {}
+    for op in best:
+        code = re.sub(r"^@!?U?P\w+\s+", "", op).split()[0]
+        opcodes[code] = opcodes.get(code, 0) + 1
+    return dict(function=func.split(None, 1)[0], per_site=len(best) / 16,
+                opcodes=opcodes)
 
 
-def bound(name: str, qb, bits, issue=None, clock_hz=None, sms=None) -> tuple:
+def keyed_clocks() -> dict:
+    """SM clocks per site of a keyed form, by limit: the ALU-only work at
+    the ALU's rate, the f32 rule at the FMA pipe's, and every instruction
+    at the issue rate. The adds go to whichever pipe is free; the two pipes
+    together then bound no tighter than the issue slots do."""
+    return dict(alu=KEYED_ALU_ONLY / INT_PER_CLOCK,
+                f32=KEYED_F32 / F32_PER_CLOCK,
+                issue=(KEYED_ALU_ONLY + KEYED_ADDS + KEYED_F32)
+                / ISSUE_PER_CLOCK)
+
+
+def bound(name: str, qb, bits, clock_hz=None, sms=None) -> tuple:
     """(bound_ms, bound_by) of one launch: each input read once, each
     output written once, against the HBM rate; and the operations, against
     the card's rate for them: about 10 f32 operations per site for an
-    operand form, the SASS count of each pipe (``issue``) for a keyed form,
-    whose busier pipe (or the issue slots) bounds it."""
+    operand form, ``keyed_clocks`` per site for a keyed form."""
     nq = qb[0].numel()
     e = qb.element_size()
     moved = 4 * nq * e + 2 * nq * e
@@ -1043,14 +1014,11 @@ def bound(name: str, qb, bits, issue=None, clock_hz=None, sms=None) -> tuple:
         _, mr, mc, bs, _ = qb.shape
         moved += 4 * mr * mc * bs * e
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    if issue is None:
-        t_ops = 2 * nq * FLOPS_PER_SITE / F32_FLOPS * 1e3
-    else:
-        p = issue["per_site"]
-        clocks = max(p["int"] / INT_PER_CLOCK,
-                     p["imad"] / IMAD_PER_CLOCK + p["f32"] / F32_PER_CLOCK,
-                     p["conv"] / CONV_PER_CLOCK, p["all"] / ISSUE_PER_CLOCK)
+    if KERNELS[name]["keyed"]:
+        clocks = max(keyed_clocks().values())
         t_ops = 2 * nq * clocks / (sms * clock_hz) * 1e3
+    else:
+        t_ops = 2 * nq * FLOPS_PER_SITE / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1109,8 +1077,7 @@ def phase_timing(launches: dict, errs: dict, sweeps: int = 20) -> tuple:
         ms = time_ms(lambda: fn(work, arg, BETA, 0, **kw), reps=50)
         plain_ms = time_ms(lambda: plain(work, arg, BETA, 0), reps=3,
                            warmup=1)
-        issue = keyed_issue(name) if keyed else None
-        b_ms, b_by = bound(name, qb, bits, issue, clock_hz, sms)
+        b_ms, b_by = bound(name, qb, bits, clock_hz, sms)
         del work
         records.append(dict(
             name=name, route="cuda", source=KERNELS[name]["source"],
@@ -1122,12 +1089,14 @@ def phase_timing(launches: dict, errs: dict, sweeps: int = 20) -> tuple:
             f"{qb[0].numel() * 2 / ms / 1e6:.1f} flips/ns"
             + (f"; the wrapper with its halo lines {call_ms:.4f} ms"
                if call_ms else ""))
-        if issue:
-            per = {k: round(v, 4) for k, v in issue["per_site"].items()}
-            log(f"  SASS {issue['function']}: row loop {issue['instructions']}"
-                f" instructions per {issue['sites_per_trip']} sites; per "
-                f"site {per}; SM clock {clock_hz / 1e6:.0f} MHz x {sms} SMs;"
-                f" opcodes {issue['opcodes']}")
+        if keyed:
+            sass = keyed_sass(name)
+            log(f"  bound per site: {KEYED_ALU_ONLY} ALU-only, {KEYED_ADDS}"
+                f" adds, {KEYED_F32} f32 -> SM clocks {keyed_clocks()} at "
+                f"{clock_hz / 1e6:.0f} MHz x {sms} SMs; SASS " + (
+                    f"{sass['function']}: row loop {sass['per_site']:.4f} "
+                    f"instructions per site, per 16 sites {sass['opcodes']}"
+                    if sass else "row loop not found"))
     kern.reset_launches()
     bits_ms = time_ms(lambda: ops.color_bits(key, 0, 0, qb.shape[1:],
                                              "cuda"), reps=3, warmup=1)

@@ -46,10 +46,12 @@
 //   instruction cache); the operand form unrolls all kRows rows.
 // * Shared memory, cp.async and TMA are not used: no measurement has shown
 //   that staging the rows through shared memory would help a stencil whose
-//   every passive element is already read once into registers. Two other
-//   variants measured slower on one H100 and were dropped: the operand
-//   form's row loop unrolled by 2 instead of kRows (it spilled), and
-//   streaming cache hints (__ldcs / __stcs) on the active rows.
+//   every passive element is already read once into registers.
+// * The rule stays a runtime flag. Two uniform factors in its place cut
+//   the keyed row loop from 117 to 100 instructions a site, but left the
+//   keyed time where it was, since that is bound by the integer ALU. They
+//   also took the bs-128 operand tiles kernel past 128 registers, and it
+//   ran 12% slower (PERF.md).
 // Updates stay in place: an active site reads only passive quads (or halo
 // lines) and its own spin, so no thread reads what another writes.
 #pragma once

@@ -11,8 +11,8 @@
 // Bound, at L = 20480 in bf16: as the tile-fetch kernel, plus the lines
 // (4 * mr * mc * bs elements, 0.8% more bytes at bs = 128). The operand
 // form is bound by memory (2.10 GB per colour, 0.63 ms at 3.35 TB/s), the
-// keyed form by integer issue (about 70 instructions of threefry per site,
-// about 0.9 ms), with 1.26 GB to move.
+// keyed form by integer issue (42 ALU-only instructions of 84 per site,
+// threefry's rotations and xors; 0.53 ms), with 1.26 GB to move.
 // The design is the shared body of checkerboard_common.cuh: 8 sites per
 // thread with 16-byte accesses, lane shuffles for the j +- 1 neighbours,
 // rows marched in registers, bs templated; the run at the top of a tile

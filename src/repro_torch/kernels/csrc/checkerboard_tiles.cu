@@ -11,9 +11,13 @@
 //   reads two active and two passive quads and the two bit planes and
 //   writes the two active quads, 2.10 GB per colour, 0.63 ms at 3.35 TB/s;
 // * keyed form (threefry in the kernel): integer issue. It moves 1.26 GB
-//   (0.38 ms) but hashes 2.1e8 sites at about 70 integer instructions each,
-//   about 0.9 ms at 64 per clock per SM on 132 SMs at 1.98 GHz
-//   (chip_smoke.py counts the instructions from this library's SASS).
+//   (0.38 ms), but each of its 2.1e8 sites needs 42 instructions that only
+//   the integer ALU issues (threefry's 20 funnel-shift rotations and 21
+//   xors, and bits >> 8) and 84 in all (with 27 adds and 15 f32 rule
+//   operations): 0.656 SM clocks a site at 64 ALU or 128 issued
+//   instructions per clock per SM, 0.53 ms on 132 SMs at 1.98 GHz.
+//   chip_smoke.py computes this bound and prints the compiled row loop's
+//   instructions per site beside it (PERF.md).
 // The design (checkerboard_common.cuh): 8 sites per thread along j with
 // 16-byte accesses and lane shuffles for the j +- 1 neighbours, each thread
 // marching 8 rows with the row above and below in registers, bs templated
