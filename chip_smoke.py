@@ -42,29 +42,43 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 7. the decomposed lattice at a small size, card == CPU bitwise (state and
    moments): ``"mesh"`` (one-rank grid) and ``"opt"`` on the xla paper
    pipeline, the xla opt pipeline and ``pallas_lines``, measured
-   (Metropolis, bf16) and not (heat-bath, f32), at 256^2 (bs 16), and
-   ``"mesh3d"`` at 16^3; both lines forms bitwise against their plain
-   versions with halo lines that differ from the local torus roll (an edge
-   provider of negated lines), at a small shape and the main path's;
-8. a one-rank NCCL process group, then the same ``mesh`` / ``opt`` paths at
+   (Metropolis, bf16) and not (heat-bath, f32), at 256^2 (bs 16),
+   ``"mesh3d"`` at 16^3, and at 256^2 ``"cluster_mesh"`` (SW, Wolff),
+   ``"potts_cluster_mesh"`` (SW, q=3), ``"potts_cb_mesh"`` (heat-bath,
+   q=3) and a replica ensemble on the grid; both lines forms bitwise
+   against their plain versions with halo lines that differ from the local
+   torus roll (an edge provider of negated lines), at a small shape and
+   the main path's;
+8. the serving plane (no kernel): the seven-shape mix at width 4, chunk
+   5, served on the card == served on the CPU == the standalone engine on
+   the card, bitwise; then ``repro_torch.launch.serve`` with 64 requests
+   of 512^2 and 1024^2 (Ising Metropolis / SW / Wolff, Potts q=2, 3),
+   width 8, chunk 16: req/s, Msites/s, P50/P99 latency, ms per chunk of
+   each bucket and the share of a chunk outside the sweeps;
+9. a one-rank NCCL process group, then the same ``mesh`` / ``opt`` paths at
    20480^2 (80 x 80 blocks of bs 128, bf16, beta 0.4406868, hot, 3
    sweeps), measured and not: 2 keyed lines-kernel launches per sweep on
    ``pallas_lines`` and none elsewhere, the measured runs' stats
    all-reduced over the group, flips/ns and peak memory; ``mesh3d`` timed
-   at 512^3; the launcher (``repro_torch.launch.simulate``) at 4096^2 on
-   one rank: 6 sweeps with a checkpoint every 3, a resume to 9, equal
-   bitwise to a straight 9-sweep run;
-9. CUDA-event timings at the main path's shapes: each of the four forms
-   (the lines forms with their halo lines made outside the timed
-   launches) against its bound and its plain version (the keyed forms'
-   bound is bytes or integer issue, whichever is larger, from the
-   instructions per site in the built library's SASS and the card's SM
-   clock), color_bits, blocked_stats, and the kernel path's sweeps per
-   second measured and not (flips/ns), peak memory.
+   at 512^3; the cluster and Potts meshes and a 16 x 4096^2 replica
+   ensemble at their single-device twins' sizes (ms per sweep beside the
+   twin's, label iterations, cross-rank merge iterations, which one rank
+   never enters, and all-reduces per sweep); the launcher
+   (``repro_torch.launch.simulate``) at 4096^2 on one rank: 6 sweeps with
+   a checkpoint every 3, a resume to 9, equal bitwise to a straight
+   9-sweep run;
+10. CUDA-event timings at the main path's shapes: each of the four forms
+    (the lines forms with their halo lines made outside the timed
+    launches) against its bound and its plain version (the keyed forms'
+    bound is bytes or integer issue, whichever is larger, from the
+    instructions per site in the built library's SASS and the card's SM
+    clock), color_bits, blocked_stats, and the kernel path's sweeps per
+    second measured and not (flips/ns), peak memory.
 
-Every path of phases 4-8 runs with the kernel launch counts set to 0 just
+Every path of phases 4-9 runs with the kernel launch counts set to 0 just
 before and read just after: 2 per sweep for the form the path runs, 0 for
-the other forms and for the scenarios that run no kernel.
+the other forms and for the scenarios that run no kernel (the serving
+plane and the cluster/Potts meshes among them).
 
 It prints one JSON line of kernel records, then the card line, then the
 contract line ``{"ok": true, "device": {...}}`` last. Without a CUDA device,
@@ -744,6 +758,46 @@ def _check_launches(label: str, cfg, sweeps: int) -> None:
                    if cfg.backend == "pallas_lines" else {})
 
 
+def grid_cluster_scenarios(size: int, full: bool) -> list:
+    """(label, EngineConfig) of the cluster and Potts meshes and the
+    replica-sharded ensemble on a one-rank grid: at ``size`` (bs 16) for
+    the card == CPU checks, or at the sizes their single-device twins run
+    (``full_scenarios``)."""
+    from repro_torch.api import EngineConfig as cfg
+    from repro_torch.api import beta_ladder
+    from repro_torch.potts.state import beta_c
+    b3 = beta_c(3)
+    mesh = dict(topology="mesh", mesh_shape=(1, 1))
+    if not full:
+        mesh.update(block_size=16, hot=True)
+    big, side = (4096, 2048) if full else (size, size)
+    n_rep, sweeps = (16, 2) if full else (4, 3)
+    return [
+        (f"cluster_mesh sw {side}^2", cfg(
+            size=side, beta=BETA, algorithm="swendsen_wang", n_sweeps=3,
+            **mesh)),
+        (f"cluster_mesh wolff {side}^2", cfg(
+            size=side, beta=BETA, algorithm="wolff", n_sweeps=3, **mesh)),
+        (f"potts_cb_mesh heat_bath q=3 {big}^2", cfg(
+            size=big, beta=b3, model="potts", q=3, rule="heat_bath",
+            n_sweeps=sweeps, **mesh)),
+        (f"potts_cluster_mesh sw q=3 {side}^2", cfg(
+            size=side, beta=b3, model="potts", q=3,
+            algorithm="swendsen_wang", n_sweeps=sweeps, **mesh)),
+        (f"ensemble on a mesh {n_rep} x {big}^2", cfg(
+            size=big, betas=beta_ladder(0.9, 1.1, n_rep), n_sweeps=sweeps,
+            **mesh)),
+    ]
+
+
+# each grid scenario's single-device twin in full_scenarios()
+GRID_TWINS = {"cluster_mesh sw": "cluster sw 2048^2",
+              "cluster_mesh wolff": "cluster wolff 2048^2",
+              "potts_cb_mesh heat_bath q=3": "potts_cb heat_bath q=3 4096^2",
+              "potts_cluster_mesh sw q=3": "potts_cluster sw q=3 2048^2",
+              "ensemble on a mesh 16 x": "ensemble 16 x 4096^2"}
+
+
 def phase_grid_small() -> None:
     """The decomposed lattice at a small size: card == CPU, bitwise."""
     import torch
@@ -760,6 +814,7 @@ def phase_grid_small() -> None:
         cases.append((f"mesh3d 16^3 measure={measure}", EngineConfig(
             size=16, beta=0.2216546, dims=3, n_sweeps=3, hot=True,
             topology="mesh", mesh_shape=(1, 1), measure=measure)))
+    cases += grid_cluster_scenarios(256, full=False)
     for i, (label, cfg) in enumerate(cases):
         kern.reset_launches()
         dev = IsingEngine(cfg, device="cuda").simulate(60 + i)
@@ -888,6 +943,59 @@ def phase_grid_full() -> dict:
     return out
 
 
+def phase_grid_cluster_full(twins: dict) -> None:
+    """The cluster and Potts meshes and the replica-sharded ensemble on
+    the one-rank NCCL grid at their twins' sizes, measured, timed on the
+    host clock after a one-sweep warm-up: ms per sweep (beside the
+    single-device twin's), local label iterations, cross-rank merge
+    iterations and all-reduces per sweep. One rank never enters the merge
+    (nrows = ncols = 1); the merge itself is held on gloo ranks on the CPU
+    only."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.api import IsingEngine
+    from repro_torch.cluster import label as LBL
+    from repro_torch.kernels import checkerboard as kern
+    from repro_torch.launch import mesh as mesh_lib
+    for label, cfg in grid_cluster_scenarios(0, full=True):
+        eng = IsingEngine(cfg)
+        if not eng.grid.distributed:
+            raise AssertionError(f"{label}: the grid has no group")
+        state = eng.init(jr.PRNGKey(90))
+        IsingEngine(dataclasses.replace(cfg, n_sweeps=1)).run(
+            state, jr.PRNGKey(91))
+        torch.cuda.synchronize()
+        kern.reset_launches()
+        mesh_lib.reset_counters()
+        LBL.reset_counters()
+        t0 = time.perf_counter()
+        res = eng.run(state, jr.PRNGKey(92))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        _no_launches(label)
+        n = cfg.n_sweeps
+        mom = res.moments
+        m_abs = (mom["m_abs"] if not cfg.betas
+                 else float(max(abs(x) for x in mom["m_abs"])))
+        if not (math.isfinite(m_abs) and m_abs <= 1.0):
+            raise AssertionError(f"{label}: moments {mom}")
+        if mesh_lib.counters["label_merge"]:
+            raise AssertionError(f"{label}: one rank entered the merge")
+        twin = next((twins[v] for k, v in GRID_TWINS.items()
+                     if label.startswith(k)), None)
+        spins = cfg.size * cfg.resolved_width() * (cfg.n_replicas() or 1)
+        log(f"grid {label} (one rank, NCCL): {n} measured sweeps in "
+            f"{seconds:.4f} s, {seconds / n * 1e3:.3f} ms per sweep "
+            f"(single-device twin "
+            f"{twin * 1e3 if twin else float('nan'):.3f} ms), "
+            f"{spins * n / seconds / 1e9:.4f} sites/ns, label iterations "
+            f"{LBL.counters['iterations'] / n:.1f}, cross-rank merge "
+            f"iterations {mesh_lib.counters['label_merge'] / n:.1f} (one "
+            "rank never merges), all-reduces "
+            f"{mesh_lib.counters['all_reduce'] / n:.1f} per sweep")
+        del eng, state, res
+
+
 def phase_mesh3d_full(side: int = 512, sweeps: int = 2) -> None:
     import torch
     from repro_torch import random as jr
@@ -910,6 +1018,79 @@ def phase_mesh3d_full(side: int = 512, sweeps: int = 2) -> None:
     log(f"grid mesh3d {side}^3: {sweeps} measured sweeps in {seconds:.4f} s,"
         f" {seconds / sweeps * 1e3:.3f} ms per sweep, "
         f"{side ** 3 * sweeps / seconds / 1e9:.4f} sites/ns")
+
+
+# the seven-request shape mix of the serving plane's bitwise tests
+SERVE_MIX = [
+    dict(L=16, beta=0.3, n_sweeps=14, n_samples=2, seed=11),
+    dict(L=16, beta=0.6, n_sweeps=9, n_samples=3, seed=12, rule="heat_bath"),
+    dict(L=16, beta=0.44, n_sweeps=7, n_samples=1, seed=13,
+         algorithm="swendsen_wang", dtype="float32"),
+    dict(L=16, beta=0.5, n_sweeps=11, n_samples=2, seed=14,
+         algorithm="wolff", dtype="float32"),
+    dict(L=16, beta=1.1, n_sweeps=13, n_samples=2, seed=15, model="potts",
+         q=3, rule="heat_bath"),
+    dict(L=16, beta=0.9, n_sweeps=8, n_samples=2, seed=16, model="potts",
+         q=3, algorithm="swendsen_wang"),
+    dict(L=8, beta=0.25, n_sweeps=10, n_samples=2, seed=17, dims=3),
+]
+SERVE_SWEEPS = 64
+
+
+def phase_serve_small() -> None:
+    """The serving plane on the seven-shape mix at width 4, chunk 5:
+    served on the card == served on the CPU == the standalone engine on
+    the card, bitwise (moments, series, snapshots)."""
+    import numpy as np
+    import torch
+    from repro_torch.api import IsingEngine
+    from repro_torch.kernels import checkerboard as kern
+    from repro_torch.serve import DONE, MCServeEngine, SimRequest
+    reqs = [SimRequest(**kw) for kw in SERVE_MIX]
+    kern.reset_launches()
+    card = MCServeEngine(replica_width=4, chunk_sweeps=5).serve(reqs)
+    torch.cuda.synchronize()
+    _no_launches("serve small")
+    cpu = MCServeEngine(replica_width=4, chunk_sweeps=5,
+                        device="cpu").serve(reqs)
+    for req, a, b in zip(reqs, card, cpu):
+        alone = IsingEngine(req.engine_config(),
+                            device="cuda").simulate(req.seed)
+        same = (a.status == b.status == DONE
+                and a.moments == b.moments == alone.moments
+                and np.array_equal(a.magnetization, b.magnetization)
+                and np.array_equal(a.magnetization,
+                                   alone.magnetization.numpy())
+                and np.array_equal(a.energy, b.energy)
+                and np.array_equal(a.energy, alone.energy.numpy())
+                and [u.moments for u in a.updates]
+                == [u.moments for u in b.updates])
+        if not same:
+            raise AssertionError(f"serve small {req}: card served != CPU "
+                                 "served != card standalone")
+    log(f"serve small: {len(reqs)} requests (every family, width 4, chunk "
+        "5): card served == CPU served == card standalone, bitwise")
+
+
+def phase_serve_full() -> None:
+    """``repro_torch.launch.serve`` on the card at the launcher's own mix:
+    64 requests of 512^2 and 1024^2, Ising (Metropolis, SW, Wolff) and
+    Potts (q=2, 3; heat-bath, Metropolis), width 8, chunk 16; req/s,
+    Msites/s, latency, ms per chunk of each bucket and the share of a
+    chunk outside the sweeps; request 0 re-run standalone, bitwise."""
+    from repro_torch.kernels import checkerboard as kern
+    from repro_torch.launch import serve
+    argv = ["--requests", "64", "--sizes", "512,1024", "--models",
+            "ising,potts", "--sweeps", str(SERVE_SWEEPS), "--samples", "4",
+            "--replica-width", "8", "--chunk", "16", "--seed", "0",
+            "--verify", "--quiet", "--chunk-stats"]
+    kern.reset_launches()
+    t0 = time.perf_counter()
+    if serve.main(argv):
+        raise AssertionError("serve: the launcher's bitwise check failed")
+    _no_launches("serve")
+    log(f"serve full: {' '.join(argv)}; {time.perf_counter() - t0:.1f} s "
+        "with the verify run")
 
 
 def phase_launcher(size: int = 4096) -> None:
@@ -1145,15 +1326,21 @@ def main() -> int:
     phase_small_and_chain()
     t_new = time.perf_counter()
     phase_scenarios_small()
-    phase_rng_shares(phase_scenarios_full())
+    twins = phase_scenarios_full()
+    phase_rng_shares(twins)
     phase_replica_stack()
     phase_cluster_breakdown()
     log(f"single-device scenario phases: {time.perf_counter() - t_new:.1f} s")
     t_grid = time.perf_counter()
     phase_grid_small()
     phase_lines_halo(errs)
+    t_serve = time.perf_counter()
+    phase_serve_small()
+    phase_serve_full()
+    log(f"serve phases: {time.perf_counter() - t_serve:.1f} s")
     init_group()
     phase_grid_full()
+    phase_grid_cluster_full(twins)
     phase_mesh3d_full()
     phase_launcher()
     log(f"grid phases: {time.perf_counter() - t_grid:.1f} s")

@@ -2,7 +2,7 @@
 
 The port of ``repro.api.engine``. :class:`EngineConfig` keeps every field
 and the whole of ``validate()``, so an invalid configuration raises the
-same :class:`EngineConfigError`. Ported scenarios (one device):
+same :class:`EngineConfigError`. Every scenario of the reference runs:
 
 * ``"chain"``  (``backend="xla"``): paper Algorithm 2 in plain PyTorch
   (:mod:`repro_torch.core.sampler`), per-sweep ``(m, E)`` from the white
@@ -29,17 +29,24 @@ same :class:`EngineConfigError`. Ported scenarios (one device):
   ``[4, mr, mc, bs, bs]``; ``backend="pallas_lines"`` launches the CUDA
   lines kernel per colour with its halo lines from the grid;
 * ``"mesh3d"``: the decomposed cube (:mod:`repro_torch.distributed.
-  ising3d`), the state this rank's ``[ld, lh, lw]`` block.
+  ising3d`), the state this rank's ``[ld, lh, lw]`` block;
+* ``"cluster_mesh"`` / ``"potts_cluster_mesh"``: Swendsen-Wang / Wolff on
+  the decomposed blocked lattice with the cross-rank label merge
+  (:mod:`repro_torch.cluster.mesh`, :mod:`repro_torch.potts.mesh`);
+  ``"potts_cb_mesh"``: the Potts checkerboard on this rank's block of the
+  ``[H, W]`` colour view;
+* an ``"ensemble"`` with ``topology="mesh"``: the replicas split evenly
+  over ``replica_axes``, this rank stepping its contiguous share (replica
+  i still keyed ``fold_in(key, i)``); series and moments come back
+  gathered in the ``[n_replicas]`` layout, the state is this rank's share.
 
 The grid scenarios need a ``torch.distributed`` group whose world size is
 the shard count (none for one shard), and stream moments only, as the
-reference does. The cluster and Potts meshes and replica ensembles on a
-mesh raise ``EngineConfigError`` naming them as not yet ported. RNG
-contract as in the reference: ``simulate(seed)`` splits ``PRNGKey(seed)``
-into init and chain keys; replica i of an ensemble is bitwise a single
-chain keyed ``fold_in(key, i)``; and the run is bitwise equal to the JAX
-engine's from the same seed, on as many ranks as the JAX run has devices
-(``tests/test_torch_*.py``).
+reference does. RNG contract as in the reference: ``simulate(seed)``
+splits ``PRNGKey(seed)`` into init and chain keys; replica i of an
+ensemble is bitwise a single chain keyed ``fold_in(key, i)``; and the run
+is bitwise equal to the JAX engine's from the same seed, on as many ranks
+as the JAX run has devices (``tests/test_torch_*.py``).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; keys are host-side ``(k0, k1)`` pairs
@@ -54,6 +61,7 @@ import torch
 
 from repro_torch import random as jr
 from repro_torch.cluster import bonds as cbonds
+from repro_torch.cluster import mesh as cmesh
 from repro_torch.cluster import sweep as csweep
 from repro_torch.core import checkerboard as cb
 from repro_torch.core import ising3d as I3
@@ -67,6 +75,7 @@ from repro_torch.distributed import ising3d as d3
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.potts import bonds as potts_bonds
+from repro_torch.potts import mesh as potts_mesh
 from repro_torch.potts import rules as potts_rules
 from repro_torch.potts import state as potts_state
 from repro_torch.potts import sweep as potts_sweep
@@ -459,23 +468,17 @@ class EngineResult:
     extra: dict = dataclasses.field(default_factory=dict)
 
 
-_PORTED = ("chain", "kernel", "ensemble", "tempering", "3d", "cluster",
-           "potts_cb", "potts_cluster", "opt", "mesh", "mesh3d")
-_GRID_SCENARIOS = ("opt", "mesh", "mesh3d")
+# decomposed-lattice scenarios: the state is this rank's block of the
+# lattice and runs stream moments only
+_GRID_SCENARIOS = ("opt", "mesh", "mesh3d", "cluster_mesh",
+                   "potts_cluster_mesh", "potts_cb_mesh")
 
 
 def check_ported(cfg: EngineConfig) -> str:
-    """Validate ``cfg`` and return its scenario, or raise
-    ``EngineConfigError`` for a scenario the port does not run yet."""
+    """Validate ``cfg`` (the reference's rules and messages) and return its
+    scenario; every scenario of the reference is ported."""
     cfg.validate()
-    scen = _scenario(cfg)
-    if scen not in _PORTED or (cfg.topology == "mesh"
-                               and scen not in _GRID_SCENARIOS):
-        where = " on a mesh" if cfg.topology == "mesh" else ""
-        _config_error(f"scenario {scen!r}{where} is not yet ported to "
-                      f"PyTorch (ported: {', '.join(_PORTED)}); use the "
-                      "JAX package's repro.api for it")
-    return scen
+    return _scenario(cfg)
 
 
 class IsingEngine:
@@ -493,7 +496,7 @@ class IsingEngine:
         scen = check_ported(cfg)
         self.cfg = cfg
         self.grid = None
-        if scen in _GRID_SCENARIOS:
+        if cfg.topology == "mesh" or scen == "opt":
             self.grid = grid if grid is not None else self._make_grid(device)
             self._check_grid(scen)
             self.device = self.grid.device
@@ -518,6 +521,14 @@ class IsingEngine:
     def _check_grid(self, scen: str) -> None:
         """The reference's tiling checks against the grid."""
         c, grid = self.cfg, self.grid
+        if c.betas:
+            n_shards = grid.axis_size(c.replica_axes)
+            if c.n_replicas() % n_shards:
+                _config_error(
+                    f"{c.n_replicas()} replicas cannot shard evenly over "
+                    f"replica_axes {c.replica_axes} (size {n_shards}); pad "
+                    "the betas ladder or change replica_axes")
+            return
         if scen == "mesh3d":
             d3cfg = self._dist3d_cfg()
             for name, axes in (("depth", d3cfg.depth_axes),
@@ -531,10 +542,17 @@ class IsingEngine:
                         f"{c.mesh_axes}); adjust size or mesh_shape")
             return
         dcfg = self._dist_cfg()
-        bs = c.resolved_block_size()
-        mr, mc = c.size // 2 // bs, c.resolved_width() // 2 // bs
         nrows = grid.axis_size(dcfg.row_axes)
         ncols = grid.axis_size(dcfg.col_axes)
+        if scen == "potts_cb_mesh":
+            if c.size % nrows or c.resolved_width() % ncols:
+                _config_error(
+                    f"colour lattice {c.size}x{c.resolved_width()} does not "
+                    f"tile the {nrows}x{ncols} device grid; adjust "
+                    "size/width or mesh_shape")
+            return
+        bs = c.resolved_block_size()
+        mr, mc = c.size // 2 // bs, c.resolved_width() // 2 // bs
         if mr % nrows or mc % ncols:
             _config_error(
                 f"blocked lattice grid {mr}x{mc} (block_size {bs}) does not "
@@ -570,25 +588,45 @@ class IsingEngine:
         counterpart of the reference's NamedSharding (what checkpoint
         restore slices a rank's block with); None elsewhere."""
         scen = self._scenario()
+        if self.grid is None:
+            return None
+        if self.cfg.betas:
+            return self.grid, (self.cfg.replica_axes, None, None, None)
         if scen == "mesh3d":
             return self.grid, d3.lattice_spec(self.grid, self._dist3d_cfg())
-        if scen in ("mesh", "opt"):
-            return self.grid, dising.lattice_spec(self._dist_cfg())
-        return None
+        if scen == "potts_cb_mesh":
+            dcfg = self._dist_cfg()
+            return self.grid, (dcfg.row_axes, dcfg.col_axes)
+        return self.grid, dising.lattice_spec(self._dist_cfg())
 
     def _grid_runner(self, n_sweeps: int, measured: bool):
+        """The cached chain runner of a grid scenario (the reference's
+        ``make_run_chain_fn`` / ``make_run_sweeps_fn`` of its module)."""
         key_ = (n_sweeps, measured)
         if key_ not in self._runners:
-            if self._scenario() == "mesh3d":
-                mod, dcfg = d3, self._dist3d_cfg()
-            else:
-                mod, dcfg = dising, self._dist_cfg()
-            if measured:
-                self._runners[key_] = mod.make_run_chain_fn(
-                    self.grid, dcfg, n_sweeps, self.cfg.measure_every)
-            else:
-                self._runners[key_] = mod.make_run_sweeps_fn(
-                    self.grid, dcfg, n_sweeps)
+            c, scen = self.cfg, self._scenario()
+            if scen == "mesh3d":
+                make = (d3.make_run_chain_fn if measured
+                        else d3.make_run_sweeps_fn)
+                args = (self._dist3d_cfg(),)
+            elif scen in ("mesh", "opt"):
+                make = (dising.make_run_chain_fn if measured
+                        else dising.make_run_sweeps_fn)
+                args = (self._dist_cfg(),)
+            elif scen == "cluster_mesh":
+                make = (cmesh.make_cluster_run_fn if measured
+                        else cmesh.make_cluster_sweeps_fn)
+                args = (self._dist_cfg(), c.algorithm)
+            elif scen == "potts_cluster_mesh":
+                make = (potts_mesh.make_potts_run_fn if measured
+                        else potts_mesh.make_potts_sweeps_fn)
+                args = (self._dist_cfg(), c.resolved_q(), c.algorithm)
+            else:   # potts_cb_mesh
+                make = (potts_mesh.make_potts_cb_run_fn if measured
+                        else potts_mesh.make_potts_cb_sweeps_fn)
+                args = (self._dist_cfg(), c.resolved_q(), c.rule)
+            extra = (c.measure_every,) if measured else ()
+            self._runners[key_] = make(self.grid, *args, n_sweeps, *extra)
         return self._runners[key_]
 
     def _chain_cfg(self) -> sampler.ChainConfig:
@@ -631,22 +669,21 @@ class IsingEngine:
             if scen == "mesh3d":
                 full = self.grid.local_block(full, self.state_sharding()[1])
             return full
-        if scen in ("mesh", "opt"):
+        if scen in ("mesh", "opt", "cluster_mesh"):
             # the whole lattice from the key on every rank, as the
             # reference draws it, then this rank's block
             w = c.resolved_width()
             full = (L.random_lattice(key, c.size, w, self._dtype, dev)
                     if self._auto_hot(c.beta)
                     else L.cold_lattice(c.size, w, self._dtype, dev))
-            qb = kops._block_quads(L.to_quads(full),
-                                   c.resolved_block_size())
-            return self.grid.local_block(qb, self.state_sharding()[1])
+            return self._local_blocked(full)
         if c.betas:
             return torch.stack([
                 sampler.init_state(jr.fold_in(key, i), c.size,
                                    c.resolved_width(), self._dtype,
-                                   hot=self._auto_hot(b), device=dev)
-                for i, b in enumerate(c.betas)])
+                                   hot=self._auto_hot(c.betas[i]),
+                                   device=dev)
+                for i in self._replica_share()])
         return sampler.init_state(key, c.size, c.resolved_width(),
                                   self._dtype, hot=self._auto_hot(c.beta),
                                   device=dev)
@@ -665,7 +702,30 @@ class IsingEngine:
         if c.betas:
             return torch.stack([one(jr.fold_in(key, i), b)
                                 for i, b in enumerate(c.betas)])
-        return one(key, c.beta)
+        full = one(key, c.beta)
+        if c.topology != "mesh":
+            return full
+        if c.algorithm == "metropolis":   # checkerboard: the full view
+            return self.grid.local_block(full, self.state_sharding()[1])
+        return self._local_blocked(full)
+
+    def _local_blocked(self, full) -> torch.Tensor:
+        """This rank's block of the blocked quads of a global full view."""
+        qb = kops._block_quads(L.to_quads(full),
+                               self.cfg.resolved_block_size())
+        return self.grid.local_block(qb, self.state_sharding()[1])
+
+    def _replica_share(self) -> range:
+        """The global indices of the replicas this rank steps: all of them
+        on one device, its contiguous share over ``replica_axes`` on a
+        mesh."""
+        n = self.cfg.n_replicas()
+        if self.grid is None:
+            return range(n)
+        shards = self.grid.axis_size(self.cfg.replica_axes)
+        per = n // shards
+        start = self.grid.axis_index(self.cfg.replica_axes) * per
+        return range(start, start + per)
 
     # ------------------------------------------------------------------
     # Runners
@@ -768,9 +828,11 @@ class IsingEngine:
                      else (None, None))
         if c.betas:
             # the replica axis leads: replica i is the chain keyed
-            # fold_in(key, i) at betas[i], all stepped together
-            key = [jr.fold_in(key, i) for i in range(len(c.betas))]
-            arg = rep_args(c.betas, self.device)
+            # fold_in(key, i) at betas[i], all stepped together (on a mesh
+            # this rank's share of them)
+            share = self._replica_share()
+            key = [jr.fold_in(key, i) for i in share]
+            arg = rep_args([c.betas[i] for i in share], self.device)
             extra = {"betas": c.betas}
         else:
             arg = self._static_arg()
@@ -778,8 +840,16 @@ class IsingEngine:
         final, ms, es = self._chain_loop(pre(state) if pre else state, key,
                                          one_sweep, one_sweep_measured, arg)
         final = post(final) if post else final
+        if self.grid is not None and ms is not None:
+            ms, es = (self._gather_replicas(x) for x in (ms, es))
         return EngineResult(final, ms, es, self._series_moments(ms, es),
                             extra)
+
+    def _gather_replicas(self, series: torch.Tensor) -> torch.Tensor:
+        """Every rank's [share, T] series into the [n_replicas, T] layout
+        (on the host, as the single-device series)."""
+        place = (self.cfg.replica_axes, None)
+        return self.grid.gather(series.to(self.device), place).cpu()
 
     def _series_moments(self, ms, es) -> Optional[dict]:
         """Moments from the per-sweep series; None when unmeasured."""
@@ -801,7 +871,8 @@ class IsingEngine:
         if n_sweeps not in self._chunk_engines:
             self._chunk_engines[n_sweeps] = IsingEngine(
                 dataclasses.replace(self.cfg, n_sweeps=n_sweeps,
-                                    measure=False), device=self.device)
+                                    measure=False), device=self.device,
+                grid=self.grid)
         return self._chunk_engines[n_sweeps].run(state, key).state
 
     def simulate(self, seed: int = 0) -> EngineResult:
@@ -824,10 +895,18 @@ class IsingEngine:
         if scen not in _GRID_SCENARIOS:
             _config_error("stats(state) reads the decomposed layouts; use "
                           "run() results elsewhere")
-        mod, dcfg = ((d3, self._dist3d_cfg()) if scen == "mesh3d"
-                     else (dising, self._dist_cfg()))
         if "global_stats" not in self._runners:
-            self._runners["global_stats"] = mod.global_stats(self.grid, dcfg)
+            if scen == "mesh3d":
+                fn = d3.global_stats(self.grid, self._dist3d_cfg())
+            elif scen == "potts_cluster_mesh":
+                fn = potts_mesh.global_stats(self.grid, self._dist_cfg(),
+                                             self.cfg.resolved_q())
+            elif scen == "potts_cb_mesh":
+                fn = potts_mesh.cb_global_stats(self.grid, self._dist_cfg(),
+                                                self.cfg.resolved_q())
+            else:
+                fn = dising.global_stats(self.grid, self._dist_cfg())
+            self._runners["global_stats"] = fn
         m, e = self._runners["global_stats"](state.to(self.device))
         return float(m), float(e)
 
@@ -840,7 +919,7 @@ class IsingEngine:
         dt = torch.int32 if scen.startswith("potts") else self._dtype
         if scen in ("3d", "mesh3d"):
             shape = (c.size,) * 3
-        elif scen in ("mesh", "opt"):
+        elif scen in ("mesh", "opt", "cluster_mesh", "potts_cluster_mesh"):
             bs = c.resolved_block_size()
             shape = (4, c.size // 2 // bs, c.resolved_width() // 2 // bs,
                      bs, bs)

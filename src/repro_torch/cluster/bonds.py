@@ -66,9 +66,15 @@ def bond_threshold_traced(betas) -> torch.Tensor:
     return threshold_from_prob(1.0 - xla_f32.exp_f32(-2.0 * b))
 
 
-def global_index(h: int, w: int, device="cpu") -> torch.Tensor:
-    """int32 [h, w] linear site indices."""
-    return torch.arange(h * w, dtype=torch.int32, device=device).view(h, w)
+def global_index(h: int, w: int, row_offset: int = 0, col_offset: int = 0,
+                 global_width: int = 0, device="cpu") -> torch.Tensor:
+    """int32 [h, w] global linear site indices of a local patch whose
+    origin is ``(row_offset, col_offset)`` in a lattice ``global_width``
+    wide (one device: offsets 0 and the patch's own width)."""
+    gw = global_width or w
+    rows = row_offset + torch.arange(h, dtype=torch.int32, device=device)
+    cols = col_offset + torch.arange(w, dtype=torch.int32, device=device)
+    return rows[:, None] * gw + cols[None, :]
 
 
 def bond_bits(key, gi: torch.Tensor, direction: int) -> torch.Tensor:
@@ -81,14 +87,22 @@ def active(bits: torch.Tensor, threshold) -> torch.Tensor:
     return u24(bits) < update_rules.per_replica(threshold, bits)
 
 
-def fk_bonds(full, key, threshold):
+def fk_bonds(full, key, threshold, east=None, south=None, gi=None):
     """(bond_right, bond_down) bool masks for a lattice ``full``:
     bond_right[i, j] joins (i, j)-(i, j+1), bond_down[i, j] joins
-    (i, j)-(i+1, j), torus wrap at the last row and column."""
+    (i, j)-(i+1, j), torus wrap at the last row and column.
+
+    ``east`` / ``south`` default to local torus rolls and ``gi`` to the
+    single-device index grid; a decomposed lattice passes its halo
+    neighbours and its patch's global indices instead."""
     h, w = full.shape[-2:]
-    gi = jr.shared(key, global_index(h, w, device=full.device))
-    br = (full == torch.roll(full, -1, -1)) & active(bond_bits(key, gi, 0),
-                                                     threshold)
-    bd = (full == torch.roll(full, -1, -2)) & active(bond_bits(key, gi, 1),
-                                                     threshold)
+    if east is None:
+        east = torch.roll(full, -1, -1)
+    if south is None:
+        south = torch.roll(full, -1, -2)
+    if gi is None:
+        gi = global_index(h, w, device=full.device)
+    gi = jr.shared(key, gi)
+    br = (full == east) & active(bond_bits(key, gi, 0), threshold)
+    bd = (full == south) & active(bond_bits(key, gi, 1), threshold)
     return br, bd

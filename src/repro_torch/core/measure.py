@@ -69,14 +69,25 @@ class Totals(NamedTuple):
     """One sweep's global sums: ``m_sum`` of the spins and ``e_sum`` of
     ``sigma * nn`` over one colour (each bond once), over ``n_spins``
     sites. The compiled loops of the reference accumulate moments from
-    these (:func:`accumulate_totals`), not from the rounded means."""
+    these (:func:`accumulate_totals`), not from the rounded means.
+
+    ``m_scale`` (an f32 value) replaces the ``1/n_spins`` that turns
+    ``m_sum`` into m, for an order parameter that is not a spin mean (the
+    Potts ``num * f32(1/(q-1))``, :func:`repro_torch.potts.state.
+    order_parameter_terms`)."""
     m_sum: torch.Tensor
     e_sum: torch.Tensor
     n_spins: int
+    m_scale: Optional[float] = None
+
+    def m_factor(self) -> float:
+        if self.m_scale is not None:
+            return self.m_scale
+        return float(np.float32(1.0) / np.float32(self.n_spins))
 
     def means(self) -> tuple:
         """(m, E/spin)."""
-        return (per_spin(self.m_sum, self.n_spins),
+        return (self.m_sum * self.m_factor(),
                 per_spin(-self.e_sum, self.n_spins))
 
 
@@ -264,14 +275,17 @@ def accumulate_totals(mom: Moments, tot: Totals, step=None,
     contracts every product that feeds a subtraction into a fused
     multiply-add, ``d = E - e_ref`` included. Thinning turns the products
     with the weight into selects. At a power-of-two N (and |s| < 2^12)
-    every form gives the plain operation order's bits."""
+    every form gives the plain operation order's bits. A Potts order
+    parameter (``tot.m_scale``) takes the same form with its scale in
+    place of ``r`` (held on the Potts meshes, q = 2 and 3)."""
     dev = mom.n.device
     s = torch.as_tensor(tot.m_sum, dtype=torch.float32, device=dev)
     t = torch.as_tensor(tot.e_sum, dtype=torch.float32, device=dev)
     r = _f32(np.float32(1.0) / np.float32(tot.n_spins))
-    r2 = _f32(np.float32(r) * np.float32(r))
+    rm = tot.m_factor()
+    r2 = _f32(np.float32(rm) * np.float32(rm))
     r4 = _f32(np.float32(r2) * np.float32(r2))
-    m = s * r
+    m = s * rm
     e = -t * r
     ss = s * s
     zero = torch.zeros((), dtype=torch.float32, device=dev)

@@ -21,8 +21,9 @@ its blocks live on, and whether a process group carries its collectives:
 
 The group is the default one (gloo on CPU tensors, NCCL on the card) and
 its world size must equal the grid's shard count. ``counters`` counts the
-collectives a grid issued. :func:`run_ranks` starts a function on N gloo
-ranks of CPU tensors (the launcher's ``--devices N`` and the tests).
+collectives a grid issued (and the cluster label merge's iterations).
+:func:`run_ranks` starts a function on N gloo ranks of CPU tensors (the
+launcher's ``--devices N`` and the tests).
 """
 from __future__ import annotations
 
@@ -35,7 +36,9 @@ import tempfile
 import torch
 import torch.distributed as dist
 
-counters = {"all_reduce": 0, "send": 0, "gather": 0}
+# collectives a grid issued, and iterations of the cross-rank label merge
+# (repro_torch.cluster.mesh), one all-reduce of a changed flag each
+counters = {"all_reduce": 0, "send": 0, "gather": 0, "label_merge": 0}
 
 
 def reset_counters() -> None:
@@ -125,10 +128,11 @@ class DeviceGrid:
     # -- collectives --------------------------------------------------------
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum of ``x`` over every rank (``lax.psum`` over the grid)."""
+        """Sum of ``x`` (a scalar or a small tensor) over every rank
+        (``lax.psum`` over the grid)."""
         if not self.distributed:
             return x
-        buf = x.detach().reshape(1).clone()
+        buf = x.detach().reshape(-1).clone()
         dist.all_reduce(buf, op=dist.ReduceOp.SUM)
         counters["all_reduce"] += 1
         return buf.reshape(x.shape)

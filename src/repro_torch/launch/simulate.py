@@ -16,10 +16,15 @@ had not stopped.
     PYTHONPATH=src python -m repro_torch.launch.simulate --mesh 1,1 \\
         --blocks-per-device 16 --block-size 128 --sweeps 9 --chunk 3
 
+    # q=3 Potts heat-bath checkerboard, or Swendsen-Wang, on a 2x2 grid:
+    PYTHONPATH=src python -m repro_torch.launch.simulate --devices 4 \
+        --mesh 2,2 --model potts --q 3 --rule heat_bath --sweeps 20
+    PYTHONPATH=src python -m repro_torch.launch.simulate --devices 4 \
+        --mesh 2,2 --algo swendsen_wang --block-size 16 --sweeps 20
+
 ``--devices N`` starts N ranks (``torch.multiprocessing``, gloo, CPU
 tensors); without it the run is one rank on the CUDA device, or on the
-CPU with ``--device cpu``. The cluster algorithms and the Potts model run
-on one device only (``--replicas``); on a grid they are not yet ported.
+CPU with ``--device cpu``. ``--replicas`` runs an ensemble on one device.
 """
 import argparse
 import sys
@@ -51,9 +56,10 @@ def parse_args(argv=None):
     ap.add_argument("--algo", default="metropolis",
                     choices=["metropolis", "swendsen_wang", "wolff"],
                     help="single-site checkerboard dynamics or the "
-                         "cluster-update plane (--replicas only)")
+                         "cluster-update plane (fast mixing at T_c)")
     ap.add_argument("--model", default="ising", choices=["ising", "potts"],
-                    help="spin model; potts requires --q (--replicas only)")
+                    help="spin model; potts requires --q (checkerboard "
+                         "and cluster dynamics both run on a grid)")
     ap.add_argument("--q", type=int, default=0,
                     help="Potts states (>= 2, with --model potts); "
                          "temperature-ratio is then relative to the exact "

@@ -32,11 +32,13 @@ _U24 = 1 << 24
 RULES = ("metropolis", "heat_bath")
 
 
-def parity_mask(height: int, width: int, color: int,
-                device="cpu") -> torch.Tensor:
-    """Bool [height, width] mask of sites with parity ``color``."""
-    rows = torch.arange(height, dtype=torch.int32, device=device)
-    cols = torch.arange(width, dtype=torch.int32, device=device)
+def parity_mask(height: int, width: int, color: int, row_offset: int = 0,
+                col_offset: int = 0, device="cpu") -> torch.Tensor:
+    """Bool [height, width] mask of sites with global parity ``color`` (a
+    patch at ``(row_offset, col_offset)``)."""
+    rows = row_offset + torch.arange(height, dtype=torch.int32,
+                                     device=device)
+    cols = col_offset + torch.arange(width, dtype=torch.int32, device=device)
     return (rows[:, None] + cols[None, :]) % 2 == color
 
 
@@ -62,21 +64,33 @@ def metropolis_thresholds_traced(beta, device="cpu") -> torch.Tensor:
     return B.threshold_from_prob(torch.clamp(p, max=1.0))
 
 
-def metropolis_color(full, key, thresholds, q: int,
-                     color: int) -> torch.Tensor:
-    """One Metropolis half-update of parity class ``color``;
-    ``thresholds`` is the int64 table of :func:`metropolis_thresholds_traced`."""
+def _geometry(full, key, gi, mask, color):
+    """The site counters (shared by every key of a batch) and parity mask
+    of a half-update: the given ones, or the single-device full view's."""
     h, w = full.shape[-2:]
-    gi = jr.shared(key, B.global_index(h, w, device=full.device))
+    if gi is None:
+        gi = B.global_index(h, w, device=full.device)
+    if mask is None:
+        mask = parity_mask(h, w, color, device=full.device)
+    return jr.shared(key, gi), mask
+
+
+def metropolis_color(full, key, thresholds, q: int, color: int, gi=None,
+                     neighbors=None, mask=None) -> torch.Tensor:
+    """One Metropolis half-update of parity class ``color``;
+    ``thresholds`` is the int64 table of :func:`metropolis_thresholds_traced`.
+    ``gi`` / ``neighbors`` / ``mask`` default to the single-device full
+    view; a decomposed lattice passes its patch's global indices, halo
+    neighbour colours and offset parity mask."""
+    gi, mask = _geometry(full, key, gi, mask, color)
     cand_bits = B.counter_bits(jr.fold_in(key, 0), gi)
     acc_bits = B.counter_bits(jr.fold_in(key, 1), gi)
     cand = uniform_other(cand_bits, full, q)
-    nbs = PS.neighbor_states(full)
+    nbs = PS.neighbor_states(full) if neighbors is None else neighbors
     dn = (PS.agreement_count(full, cand, nbs)
           - PS.agreement_count(full, full, nbs))
     t = update_rules.lookup(thresholds, (dn + 4).long())
     accept = B.u24(acc_bits) < t
-    mask = parity_mask(h, w, color, device=full.device)
     return torch.where(mask & accept, cand, full)
 
 
@@ -91,14 +105,15 @@ def heat_bath_weight_table(beta, device="cpu") -> torch.Tensor:
                                   device)
 
 
-def heat_bath_color(full, key, beta, q: int, color: int) -> torch.Tensor:
-    """One heat-bath half-update of parity class ``color``."""
-    h, w = full.shape[-2:]
-    gi = jr.shared(key, B.global_index(h, w, device=full.device))
+def heat_bath_color(full, key, beta, q: int, color: int, gi=None,
+                    neighbors=None, mask=None) -> torch.Tensor:
+    """One heat-bath half-update of parity class ``color`` (overrides as
+    in :func:`metropolis_color`)."""
+    gi, mask = _geometry(full, key, gi, mask, color)
     u = B.u24(B.counter_bits(key, gi))
     table = heat_bath_weight_table(update_rules.per_replica(beta, full),
                                    full.device)
-    nbs = PS.neighbor_states(full)
+    nbs = PS.neighbor_states(full) if neighbors is None else neighbors
     run = torch.zeros(full.shape, dtype=torch.float32, device=full.device)
     cum = []
     for s in range(q):
@@ -110,7 +125,6 @@ def heat_bath_color(full, key, beta, q: int, color: int) -> torch.Tensor:
     for s in range(q - 1):                   # cdf_{q-1} = 1 by construction
         t = B.threshold_from_prob(cum[s] / total)
         new = new + (u >= t).to(torch.int32)
-    mask = parity_mask(h, w, color, device=full.device)
     return torch.where(mask, new, full)
 
 
@@ -119,8 +133,15 @@ def heat_bath_color(full, key, beta, q: int, color: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def checkerboard_sweep(full, key, beta, q: int, rule: str = "heat_bath"):
-    """One full sweep (both parity classes) under the per-sweep ``key``."""
+def checkerboard_sweep(full, key, beta, q: int, rule: str = "heat_bath",
+                       gi=None, neighbors_fn=None, masks=None):
+    """One full sweep (both parity classes) under the per-sweep ``key``.
+
+    A decomposed lattice passes its patch's geometry: ``gi`` (global site
+    indices), ``neighbors_fn(full)`` (halo neighbour colours, evaluated
+    before each half-update, since the first changes what the second
+    reads) and ``masks`` (the two offset parity masks). The defaults are
+    the single-device full view."""
     if rule not in RULES:
         raise ValueError(f"unknown potts rule {rule!r}; use one of {RULES}")
     thresholds = (metropolis_thresholds_traced(
@@ -128,10 +149,14 @@ def checkerboard_sweep(full, key, beta, q: int, rule: str = "heat_bath"):
         if rule == "metropolis" else None)
     for color in (0, 1):
         kc = jr.fold_in(key, color)
+        nbs = neighbors_fn(full) if neighbors_fn is not None else None
+        mask = masks[color] if masks is not None else None
         if rule == "heat_bath":
-            full = heat_bath_color(full, kc, beta, q, color)
+            full = heat_bath_color(full, kc, beta, q, color, gi=gi,
+                                   neighbors=nbs, mask=mask)
         else:
-            full = metropolis_color(full, kc, thresholds, q, color)
+            full = metropolis_color(full, kc, thresholds, q, color, gi=gi,
+                                    neighbors=nbs, mask=mask)
     return full
 
 

@@ -62,17 +62,24 @@ def state_counts(full, q: int) -> torch.Tensor:
                        -1)
 
 
-def order_parameter_from_counts(counts, q: int, n_spins) -> torch.Tensor:
-    """m = (q * max_s rho_s - 1) / (q - 1) from colour populations.
-
-    Evaluated as the reference's compiled code does: XLA turns both
-    divisions into products with f32 reciprocals, folds ``q * (1/N)`` into
-    one constant and fuses the multiply-subtract into an ``fma``:
-    ``fma(max, f32(q * f32(1/N)), -1) * f32(1/(q-1))``."""
+def order_parameter_terms(counts, q: int, n_spins) -> tuple:
+    """``(num, scale)`` with m = num * scale: the order parameter from
+    colour populations as the reference's compiled code evaluates it. XLA
+    turns both divisions into products with f32 reciprocals, folds
+    ``q * (1/N)`` into one constant and fuses the multiply-subtract into
+    an ``fma``: num = ``fma(max, f32(q * f32(1/N)), -1)``, scale =
+    ``f32(1/(q-1))``."""
     f32 = np.float32
     qr = float(f32(q) * (f32(1.0) / f32(n_spins)))
     num = (torch.amax(counts, -1).double() * qr - 1.0).float()
-    return num * float(f32(1.0) / f32(q - 1))
+    return num, float(f32(1.0) / f32(q - 1))
+
+
+def order_parameter_from_counts(counts, q: int, n_spins) -> torch.Tensor:
+    """m = (q * max_s rho_s - 1) / (q - 1) from colour populations
+    (:func:`order_parameter_terms`)."""
+    num, scale = order_parameter_terms(counts, q, n_spins)
+    return num * scale
 
 
 def order_parameter(full, q: int) -> torch.Tensor:

@@ -15,7 +15,8 @@ module reproduces the parts it uses:
 * ``fold_in_bits`` is ``fold_in`` over a tensor of counters: the last key
   word of ``fold_in(key, c)`` for every element ``c``;
 * a *key batch* is a list of keys, one per replica. ``fold_in`` maps over
-  it on the host, and every device draw under it gains a leading replica
+  it on the host (with one value for all keys, or a list of one value per
+  key), and every device draw under it gains a leading replica
   axis whose row ``i`` is bitwise the draw under key ``i`` alone, so R
   replicas are drawn in one pass.
 
@@ -90,10 +91,16 @@ def is_batch(key) -> bool:
     return isinstance(key, list)
 
 
-def fold_in(key, data: int):
+def fold_in(key, data):
     """``jax.random.fold_in``: threefry of the counter pair ``(0, data)``
-    (for every key of a batch)."""
+    (for every key of a batch). Under a key batch ``data`` may also be a
+    list, one value per key (each replica at its own step)."""
     if is_batch(key):
+        if isinstance(data, (list, tuple)):
+            if len(data) != len(key):
+                raise ValueError(f"{len(data)} values for a batch of "
+                                 f"{len(key)} keys")
+            return [fold_in(k, d) for k, d in zip(key, data)]
         return [fold_in(k, data) for k in key]
     return _threefry_int(key[0], key[1], 0, int(data) & _M32)
 

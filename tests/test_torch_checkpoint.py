@@ -21,7 +21,8 @@ from conftest import REPO, SRC  # noqa: E402
 from repro.checkpoint import ckpt as jckpt  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch import random as jr  # noqa: E402
-from repro_torch.api import EngineConfig, EngineConfigError  # noqa: E402
+from repro_torch.api import EngineConfig  # noqa: E402
+from repro_torch.api.engine import check_ported  # noqa: E402
 from repro_torch.api import IsingEngine  # noqa: E402
 from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
@@ -288,8 +289,14 @@ def test_simulate_launcher_runs_resumes_and_matches_jax(tmp_path):
 @pytest.mark.parametrize("extra", [["--model", "potts", "--q", "3"],
                                    ["--algo", "wolff"]])
 def test_simulate_launcher_refuses_unported_grids(extra):
-    with pytest.raises(EngineConfigError, match="not yet ported"):
-        simulate.main(["--devices", "4", "--mesh", "2,2"] + extra)
+    """The Potts and cluster grids, refused before any rank started while
+    they were not ported, now pass the launcher's check as grid scenarios
+    (their runs are held in test_torch_cluster_mesh.py and
+    test_torch_potts_mesh.py)."""
+    args = simulate.parse_args(["--devices", "4", "--mesh", "2,2"] + extra)
+    cfg = simulate.build(args)[0]
+    assert check_ported(cfg) in ("potts_cb_mesh", "cluster_mesh")
+    assert cfg.topology == "mesh" and cfg.mesh_shape == (2, 2)
 
 
 def test_simulate_launcher_device_choice(capsys):

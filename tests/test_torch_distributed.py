@@ -447,12 +447,13 @@ def test_grid_errors():
     with pytest.raises(EngineConfigError, match="4 shards"):
         IsingEngine(EngineConfig(**_base(topology="mesh", mesh_shape=(2, 2))),
                     device="cpu")
-    with pytest.raises(EngineConfigError, match="not yet ported"):
-        IsingEngine(EngineConfig(**_base(betas=(0.3, 0.4), beta=None,
-                                         topology="mesh",
-                                         mesh_shape=(1, 1))), device="cpu")
     fake = mesh_lib.DeviceGrid((4, 1), ("data", "model"), 0,
                                torch.device("cpu"))
+    with pytest.raises(EngineConfigError, match="cannot shard evenly"):
+        IsingEngine(EngineConfig(**_base(betas=(0.3, 0.4), beta=None,
+                                         topology="mesh",
+                                         mesh_shape=(4, 1))), device="cpu",
+                    grid=fake)
     with pytest.raises(EngineConfigError, match="does not divide"):
         IsingEngine(EngineConfig(size=6, beta=0.3, dims=3, topology="mesh",
                                  mesh_shape=(4, 1)), device="cpu", grid=fake)

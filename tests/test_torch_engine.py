@@ -226,13 +226,22 @@ def test_invalid_configs_raise_the_reference_errors(bad, hint):
     dict(betas=(0.3, 0.4), topology="mesh", mesh_shape=(2, 1)),
 ])
 def test_unported_scenarios_raise(kw):
-    """The cluster and Potts meshes and replica ensembles on a mesh are not
-    ported yet, whatever the grid (one rank or more)."""
+    """The cluster and Potts meshes and replica ensembles on a mesh, once
+    refused as not yet ported, are ported: on a one-rank grid they build
+    their grid; on a larger grid with no process group they raise only the
+    grid's shard-count error."""
     base = _cfg(**kw)
     if "betas" in kw:
         base.pop("beta")
-    with pytest.raises(EngineConfigError, match="not yet ported"):
-        IsingEngine(EngineConfig(**base), device="cpu")
+    cfg = EngineConfig(**base)
+    if cfg.mesh_shape == (1, 1):
+        eng = IsingEngine(cfg, device="cpu")
+        assert eng.state_sharding()[0] is eng.grid
+        assert eng.grid.shape == (1, 1) and not eng.grid.distributed
+        return
+    with pytest.raises(EngineConfigError, match="shards") as exc:
+        IsingEngine(cfg, device="cpu")
+    assert "ported" not in str(exc.value)
 
 
 def test_default_device_is_cuda():
