@@ -26,6 +26,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    forms, 2 launches per sweep) equal to the keyed sweeps at 20480^2; the
    kernel path at 256^2 on the card equal to the CPU plain path (state and
    series); the "chain" scenario at 4096^2;
+4b. paper Algorithm 1 (``core.checkerboard.update_naive``): card == CPU
+    bitwise at 256^2, and one sweep at 4096^2 (bs 128) against Algorithm
+    2's on the same uniforms; ``rng="rbg"`` of the decomposed lattice: the
+    device generator's bits (the same for one key), the reference's
+    physics bounds at 128^2, and the xla opt sweep at 20480^2 against
+    threefry;
+4c. the decoder LM (no kernel): qwen3-0.6b at ``--scale 0.05`` in f32 with
+    the same weights on the card and the CPU (logits, loss, grads, 3
+    AdamW steps, prefill and 4 decode steps), ``launch.train`` resumed from
+    a checkpoint == a straight run; the cost of f32 attention scores from
+    bf16 operands; ``launch.train`` at the published width (seq 4096,
+    batch 8 in 4 microbatches): ms a step, tokens/s, peak memory, the
+    losses, the share of the bf16 peak, one step's device time by kernel
+    (``torch.profiler``), then prefill 1 x 4096 and 32 decode steps;
 5. every other ported scenario at a small size, card == CPU bitwise
    (state, series, moments, extras): ensemble (bf16, f32), tempering
    (with accepted swaps), 3-D
@@ -78,7 +92,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 Every path of phases 4-9 runs with the kernel launch counts set to 0 just
 before and read just after: 2 per sweep for the form the path runs, 0 for
 the other forms and for the scenarios that run no kernel (the serving
-plane and the cluster/Potts meshes among them).
+plane, the cluster/Potts meshes, Algorithm 1, rbg and the LM among them).
 
 It prints one JSON line of kernel records, then the card line, then the
 contract line ``{"ok": true, "device": {...}}`` last. Without a CUDA device,
@@ -89,6 +103,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -205,7 +220,6 @@ def exact_diff(a, b) -> float:
 
 
 def phase_build() -> float:
-    import re
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build()
@@ -1121,6 +1135,432 @@ def phase_launcher(size: int = 4096) -> None:
         f"{time.perf_counter() - t0:.1f} s for the three runs")
 
 
+def phase_algorithm1(size: int = 4096, bs: int = 128) -> None:
+    """Paper Algorithm 1 (``update_naive``): card == CPU bitwise at 256^2
+    (bs 16), both colours, the table and exp rules, bf16 and f32; then one
+    sweep at ``size``^2 (bs ``bs``, bf16) against Algorithm 2's compact
+    sweep on the same uniforms, CUDA events, the draws made outside (the
+    paper's Algorithm 1 vs 2 claim), and the ``"chain"`` scenario's whole
+    sweep (its threefry draws included) beside them."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.api import EngineConfig, IsingEngine
+    from repro_torch.core import checkerboard as cb
+    from repro_torch.core import lattice as L
+    from repro_torch.kernels import checkerboard as kern
+    kern.reset_launches()
+    for dtype in (torch.bfloat16, torch.float32):
+        full = L.random_lattice(jr.PRNGKey(101), 256, 256, dtype, "cuda")
+        for color in (0, 1):
+            for accept in ("lut", "exp"):
+                probs = jr.uniform(jr.PRNGKey(102 + color), (256, 256),
+                                   device="cuda")
+                dev = cb.update_naive(full, probs, BETA, color, 16, accept)
+                cpu = cb.update_naive(full.cpu(), probs.cpu(), BETA, color,
+                                      16, accept)
+                if exact_diff(dev.cpu(), cpu):
+                    raise AssertionError(f"update_naive {dtype} {accept} "
+                                         f"colour {color}: card != CPU")
+    log("Algorithm 1 (update_naive) 256^2 bs 16: card == CPU bitwise, bf16 "
+        "and f32, lut and exp, both colours")
+    full = L.random_lattice(jr.PRNGKey(103), size, size, device="cuda")
+    pb, pw = (jr.uniform(jr.PRNGKey(104 + c), (size, size), device="cuda")
+              for c in (0, 1))
+    probs = cb.quad_probs_from_full(pb, pw)
+    quads = L.to_quads(full)
+    naive = cb.sweep_full(full, pb, pw, BETA)       # the oracle, once
+    if exact_diff(cb.update_naive(cb.update_naive(full, pb, BETA, 0, bs),
+                                  pw, BETA, 1, bs), naive) or exact_diff(
+            L.from_quads(cb.sweep_compact(quads, probs, BETA, bs)), naive):
+        raise AssertionError("Algorithm 1 or 2 != the oracle at full size")
+    alg1_ms = time_ms(lambda: cb.update_naive(
+        cb.update_naive(full, pb, BETA, 0, bs), pw, BETA, 1, bs), reps=10)
+    alg2_ms = time_ms(lambda: cb.sweep_compact(quads, probs, BETA, bs),
+                      reps=10)
+    cfg = EngineConfig(size=size, beta=BETA, n_sweeps=4, hot=True)
+    eng = IsingEngine(cfg)
+    eng.simulate(3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.simulate(3)
+    torch.cuda.synchronize()
+    chain_ms = (time.perf_counter() - t0) / 4 * 1e3
+    _no_launches("Algorithm 1 / 2")
+    log(f"Algorithm 1 vs 2 at {size}^2 bs {bs} bf16, uniforms drawn outside:"
+        f" Algorithm 1 {alg1_ms:.3f} ms per sweep, Algorithm 2 {alg2_ms:.3f}"
+        f" ms ({alg1_ms / alg2_ms:.2f}x); both == the full-lattice oracle; "
+        f"the chain scenario (Algorithm 2 with its threefry draws) "
+        f"{chain_ms:.3f} ms per sweep")
+
+
+def phase_rbg(sweeps: int = 3) -> None:
+    """``DistIsingConfig(rng="rbg")`` on a one-rank grid: the device
+    generator's bits repeat for one key and differ for another; the
+    reference's physics bounds at 128^2 (cold beta 1.0 stays ordered, hot
+    beta 0.2 disordered, 40 sweeps, uint16 bits); then the xla opt sweep
+    at 20480^2 with rbg against the same sweep with threefry, host clock
+    around synchronised runs after a one-sweep warm-up each, in turns
+    (threefry, rbg, rbg, threefry)."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.core import lattice as L
+    from repro_torch.distributed import ising as dising
+    from repro_torch.kernels import checkerboard as kern
+    from repro_torch.launch import mesh as mesh_lib
+    k = jr.fold_in(jr.PRNGKey(110), 3)
+    a = dising.rbg_bits(k, (2, 80, 80, 128, 128), "cuda")
+    if not torch.equal(a, dising.rbg_bits(k, a.shape, "cuda")) or \
+            torch.equal(a, dising.rbg_bits(jr.fold_in(k, 1), a.shape,
+                                           "cuda")):
+        raise AssertionError("rbg: one key must give the same bits, "
+                             "another key others")
+    ones = float((a.view(torch.uint8).unsqueeze(-1).bitwise_and(
+        torch.tensor([1 << i for i in range(8)], dtype=torch.uint8,
+                     device="cuda")) != 0).float().mean())
+    del a
+    grid = mesh_lib.make_grid((1, 1), ("data", "model"), "cuda")
+
+    def blocked(full, bs):
+        quads = L.to_quads(full)
+        return torch.stack([L.block(quads[i], bs) for i in range(4)])
+
+    ms = []
+    for beta, full, key in (
+            (1.0, L.cold_lattice(128, 128, device="cuda"), 0),
+            (0.2, L.random_lattice(jr.PRNGKey(1), 128, 128, device="cuda"),
+             1)):
+        cfg = dising.DistIsingConfig(beta=beta, block_size=16,
+                                     pipeline="opt", rng="rbg",
+                                     bits_dtype="uint16")
+        out = dising.make_run_sweeps_fn(grid, cfg, 40)(blocked(full, 16),
+                                                       jr.PRNGKey(key))
+        ms.append(abs(float(out.float().mean())))
+    if not (ms[0] > 0.95 and ms[1] < 0.2):
+        raise AssertionError(f"rbg physics at 128^2: |m| {ms}")
+    log(f"rbg bits: same key == same bits, another key differs; share of "
+        f"one bits {ones:.6f}; 128^2 uint16 40 sweeps: cold beta 1.0 |m| = "
+        f"{ms[0]:.6f} > 0.95, hot beta 0.2 |m| = {ms[1]:.6f} < 0.2")
+    qb = blocked(L.random_lattice(jr.PRNGKey(111), SIZE, SIZE,
+                                  device="cuda"), BS)
+    times = {"threefry": [], "rbg": []}
+    for rng in ("threefry", "rbg", "rbg", "threefry"):
+        cfg = dising.DistIsingConfig(beta=BETA, block_size=BS,
+                                     pipeline="opt", rng=rng)
+        dising.make_run_sweeps_fn(grid, cfg, 1)(qb, jr.PRNGKey(112))
+        torch.cuda.synchronize()
+        kern.reset_launches()
+        t0 = time.perf_counter()
+        out = dising.make_run_sweeps_fn(grid, cfg, sweeps)(qb,
+                                                           jr.PRNGKey(113))
+        torch.cuda.synchronize()
+        times[rng].append((time.perf_counter() - t0) / sweeps * 1e3)
+        _no_launches(f"opt xla {rng}")
+        if not abs(float(out.float().mean())) <= 1.0:
+            raise AssertionError(f"opt xla {rng}: bad lattice")
+        del out
+    t, r = (min(times[n]) for n in ("threefry", "rbg"))
+    log(f"opt xla {SIZE}^2 bs {BS} bf16, {sweeps} sweeps a run: threefry "
+        f"{times['threefry']} ms per sweep, rbg {times['rbg']} ms per sweep "
+        f"(best {t:.3f} vs {r:.3f}: {t / r:.1f}x); "
+        f"{SIZE ** 2 / r / 1e6:.4f} flips/ns with rbg")
+
+
+# qwen3-0.6b as published (the LM full-width phase)
+LM_ARCH = "qwen3-0.6b"
+LM_SEQ, LM_BATCH, LM_MICRO, LM_STEPS = 4096, 8, 4, 4
+BF16_FLOPS = 989e12          # H100 SXM, dense bf16 (NVIDIA data sheet)
+
+
+def lm_model_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step: 3 x the forward's matmul FLOPs (2 per
+    weight per token, the unembedding included) plus causal attention's
+    QK^T and PV (2 x 2 x seq/2 x heads x head_dim per token per layer).
+    Remat's recomputed forward is not counted."""
+    d, hd = cfg.d_model, cfg.head_dim
+    per_layer = (d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads)
+                 + cfg.n_heads * hd * d + 3 * d * cfg.d_ff)
+    weights = cfg.n_layers * per_layer + d * cfg.padded_vocab
+    attn = cfg.n_layers * 2 * seq * cfg.n_heads * hd
+    return 3.0 * batch * seq * (2.0 * weights + attn)
+
+
+def phase_lm_small() -> None:
+    """qwen3-0.6b at --scale 0.05 in f32 with the same weights on the card
+    and the CPU: logits, loss, grads, 3 AdamW steps, prefill + 4 decode
+    steps (f32 tolerances of the CPU tests: 1e-5 absolute on logits and
+    loss, 1e-4 of each leaf's largest entry on grads and parameters); then
+    ``repro_torch.launch.train`` on the card with a checkpoint every 2
+    steps, resumed to step 6, equal bitwise to a straight 6-step run."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import checkerboard as kern
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as TS
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: f32 products would not "
+                             "be f32")
+    kern.reset_launches()
+    cfg = dataclasses.replace(
+        launch_train._reduce(get_config(LM_ARCH), 0.05), dtype="float32")
+    ocfg = opt.OptimizerConfig(lr=1e-3, warmup_steps=1)
+    shape = ShapeConfig("small", seq_len=64, global_batch=4, kind="train")
+    cpu = TS.init_train_state(cfg, ocfg, torch.Generator().manual_seed(7))
+    dev = tree.map(lambda a: a.to("cuda"), cpu)
+    errs = {}
+
+    def err(name, a, b, rel=None):
+        a, b = a.detach().float().cpu(), b.detach().float()
+        e = float((a - b).abs().max())
+        scale = float(b.abs().max()) if rel else 1.0
+        errs[name] = max(errs.get(name, 0.0), e / max(scale, 1e-30))
+        if e > (rel * scale if rel else 1e-5):
+            raise AssertionError(f"LM small {name}: card != CPU, err {e}")
+
+    bc = syn.device_batch(0, shape, cfg, "cpu")
+    bd = syn.device_batch(0, shape, cfg, "cuda")
+    err("logits", T.forward(dev["params"], cfg, bd),
+        T.forward(cpu["params"], cfg, bc))
+    (ld, gd), (lc, gc) = (TS.value_and_grad(cfg)(s["params"], b)
+                          for s, b in ((dev, bd), (cpu, bc)))
+    err("loss", ld, lc)
+    for a, b in zip(tree.leaves(gd), tree.leaves(gc)):
+        err("grads", a, b, rel=1e-4)
+    step = TS.make_train_step(cfg, ocfg)
+    for i in range(3):
+        dev, md = step(dev, syn.device_batch(i, shape, cfg, "cuda"))
+        cpu, mc = step(cpu, syn.device_batch(i, shape, cfg, "cpu"))
+        err("loss", md["loss"], mc["loss"])
+    for a, b in zip(tree.leaves(dev), tree.leaves(cpu)):
+        if a.dtype == torch.int32:
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError("LM small: step counts differ")
+        else:
+            err("params after 3 steps", a, b, rel=1e-4)
+    prompt = {"tokens": bc["tokens"][:, :48]}
+    ld, sd = M.make_prefill(cfg, 56)(dev["params"],
+                                     {"tokens": prompt["tokens"].cuda()})
+    lc, sc = M.make_prefill(cfg, 56)(cpu["params"], prompt)
+    err("prefill logits", ld, lc)
+    tok = lc.argmax(-1).int()
+    decode = M.make_decode_step(cfg)
+    for pos in range(48, 52):
+        ld, sd = decode(dev["params"], sd, {"tokens": tok.cuda(), "pos": pos})
+        lc, sc = decode(cpu["params"], sc, {"tokens": tok, "pos": pos})
+        err("decode logits", ld, lc)
+        tok = lc.argmax(-1).int()
+    _no_launches("LM small")
+    log(f"LM small ({LM_ARCH} scale 0.05, f32, {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}): card == CPU within the f32 tolerances, "
+        f"largest differences {errs}")
+    work = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    common = ["--arch", LM_ARCH, "--scale", "0.05", "--batch", "8", "--seq",
+              "128", "--microbatches", "2", "--seed", "5"]
+    t0 = time.perf_counter()
+    for steps, where, every in ((4, "resumed", 2), (6, "resumed", 2),
+                                (6, "straight", 6)):
+        if launch_train.main(common + ["--steps", str(steps), "--ckpt-dir",
+                                       str(work / where), "--ckpt-every",
+                                       str(every)]):
+            raise AssertionError("launch.train failed")
+    _no_launches("launch.train")
+    with np.load(work / "resumed" / "step_00000006.npz") as a, \
+            np.load(work / "straight" / "step_00000006.npz") as b:
+        if sorted(a.files) != sorted(b.files) or not all(
+                np.array_equal(a[n], b[n]) for n in a.files):
+            raise AssertionError("launch.train: resumed != straight at 6")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"launch.train on the card (scale 0.05, bf16): 4 steps with a "
+        f"checkpoint every 2, resumed to 6 == straight 6, bitwise; "
+        f"{time.perf_counter() - t0:.1f} s for the three runs")
+
+
+def phase_lm_scores() -> None:
+    """What the f32 scores of bf16 operands cost at the full-width shapes
+    (one chunk pair of one microbatch: [B*KV, qc*G, hd] x [B*KV, hd, kc]):
+    the bf16-in, f32-out GEMM the port uses against an f32 GEMM of the
+    widened operands and a bf16 GEMM that rounds the scores."""
+    import torch
+    from repro_torch.models import layers as LY
+    b, kv, g, hd, qc, kc = 2, 8, 2, 128, 1024, 1024
+    q = torch.randn(b * kv, qc * g, hd, device="cuda").bfloat16()
+    k = torch.randn(b * kv, kc, hd, device="cuda").bfloat16()
+    kt = k.transpose(-1, -2)
+    got = LY.matmul_f32(q, kt)
+    want = torch.bmm(q.float(), kt.float())
+    rel = float((got - want).abs().max() / want.abs().max())
+    if got.dtype != torch.float32 or rel > 1e-5:
+        raise AssertionError(f"matmul_f32: {got.dtype}, rel err {rel}")
+    flops = 2 * b * kv * qc * g * kc * hd
+    t_out = time_ms(lambda: LY.matmul_f32(q, kt), reps=50)
+    t_f32 = time_ms(lambda: torch.bmm(q.float(), kt.float()), reps=50)
+    t_bf16 = time_ms(lambda: torch.bmm(q, kt), reps=50)
+    log(f"attention scores [{b * kv}, {qc * g}, {hd}] x [{hd}, {kc}]: bf16 "
+        f"in, f32 out {t_out:.4f} ms ({flops / t_out / 1e9:.1f} TFLOP/s); "
+        f"widened to f32 {t_f32:.4f} ms ({flops / t_f32 / 1e9:.1f}); bf16 "
+        f"out (rounded) {t_bf16:.4f} ms ({flops / t_bf16 / 1e9:.1f}); "
+        f"max rel diff to the f32 product {rel:.2e}")
+
+
+def phase_lm_full() -> None:
+    """``repro_torch.launch.train`` at the published qwen3-0.6b (28 layers,
+    d_model 1024, 16/8 heads of 128, d_ff 3072, vocab 151936, already a
+    multiple of the 128 it is padded to, qk_norm, SwiGLU, bf16), seq 4096, batch 8 in 4 microbatches,
+    AdamW with f32 states, remat, no checkpoint: ms a step after the
+    first, tokens/s, peak memory, the loss of each step, model FLOPs as a
+    share of the bf16 peak; the device time of one microbatch by kernel
+    (``torch.profiler``) and attention's share of a step; then prefill
+    1 x 4096 (max_len 4128) and 32 greedy decode steps, and the kernels a
+    decode token launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import tree
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import checkerboard as kern
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import layers as LY
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as TS
+    kern.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", LM_ARCH, "--scale", "1.0", "--seq", str(LM_SEQ),
+            "--batch", str(LM_BATCH), "--microbatches", str(LM_MICRO),
+            "--steps", str(LM_STEPS)]
+    t0 = time.perf_counter()
+    run = launch_train.train(launch_train.parse_args(argv))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    _no_launches("LM full")
+    cfg, trainer, res = run["cfg"], run["trainer"], run["result"]
+    shape = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+             cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.padded_vocab,
+             cfg.qk_norm, cfg.activation, cfg.dtype, cfg.remat)
+    if shape != (28, 1024, 16, 8, 128, 3072, 151936, 151936, True,
+                 "swiglu", "bfloat16", True):
+        raise AssertionError(f"not the published qwen3-0.6b: {shape}")
+    losses = res["losses"]
+    if len(losses) != LM_STEPS or not all(map(math.isfinite, losses)) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"LM full: losses {losses}")
+    step_s = sorted(trainer.step_times[1:])[len(trainer.step_times[1:]) // 2]
+    tokens = LM_BATCH * LM_SEQ
+    flops = lm_model_flops(cfg, LM_BATCH, LM_SEQ)
+    n_params = sum(a.numel() for a in tree.leaves(trainer.state["params"]))
+    log(f"LM full {LM_ARCH}: {n_params / 1e9:.4f} B params, seq {LM_SEQ}, "
+        f"batch {LM_BATCH} in {LM_MICRO} microbatches, {LM_STEPS} steps in "
+        f"{wall:.1f} s (init included); step times "
+        f"{[round(t * 1e3, 1) for t in trainer.step_times]} ms; median "
+        f"after the first {step_s * 1e3:.1f} ms, {tokens / step_s:.1f} "
+        f"tokens/s; losses {losses}; peak memory {peak / 2**30:.2f} GiB; "
+        f"model FLOPs a step {flops:.4e}, {flops / step_s / 1e12:.1f} "
+        f"TFLOP/s = {flops / step_s / BF16_FLOPS:.2%} of the {BF16_FLOPS:.3g}"
+        f" bf16 dense peak (H100 SXM data sheet)")
+    # where a step's device time goes: one microbatch's forward and
+    # backward under the profiler (kernels only), and the attention of one
+    # layer and microbatch alone (CUDA events)
+    mb = syn.device_batch(LM_STEPS, ShapeConfig(
+        "p", seq_len=LM_SEQ, global_batch=LM_BATCH // LM_MICRO,
+        kind="train"), cfg, "cuda")
+    params = trainer.state["params"]
+    grad_fn = TS.value_and_grad(cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        grad_fn(params, mb)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    if not busy:
+        raise AssertionError("the profiler saw no device time")
+    gemm = sum(e.self_device_time_total for e in events
+               if re.search(r"gemm|nvjet|xmma|cutlass", e.key)) / 1e6
+    log(f"LM full profile of one microbatch (forward + backward, remat): "
+        f"{prof_s * 1e3:.1f} ms wall, device busy {busy * 1e3:.1f} ms "
+        f"({busy / prof_s:.1%}), GEMMs {gemm * 1e3:.1f} ms "
+        f"({gemm / busy:.1%} of busy); top kernels by device time:")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"  {e.self_device_time_total / 1e3:9.1f} ms {e.count:6d} x "
+            f"{e.key[:96]}")
+    del mb
+    gen = torch.Generator("cuda").manual_seed(1)
+    b = LM_BATCH // LM_MICRO
+    q = torch.randn(b, LM_SEQ, cfg.n_heads, cfg.head_dim, device="cuda",
+                    generator=gen).bfloat16().requires_grad_()
+    k, v = (torch.randn(b, LM_SEQ, cfg.n_kv_heads, cfg.head_dim,
+                        device="cuda", generator=gen).bfloat16()
+            .requires_grad_() for _ in range(2))
+    fwd_ms = time_ms(lambda: LY.flash_attention(q, k, v), reps=3, warmup=1)
+    both_ms = time_ms(lambda: torch.autograd.grad(
+        LY.flash_attention(q, k, v).float().sum(), (q, k, v)), reps=3,
+        warmup=1)
+    attn_s = LM_MICRO * cfg.n_layers * (fwd_ms + both_ms) / 1e3
+    log(f"LM full attention of one layer and microbatch [{b}, {LM_SEQ}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, {cfg.head_dim}]: forward "
+        f"{fwd_ms:.2f} ms, forward + backward {both_ms:.2f} ms; a step "
+        f"(x {LM_MICRO} microbatches x {cfg.n_layers} layers, the forward "
+        f"twice under remat) {attn_s * 1e3:.0f} ms, {attn_s / step_s:.1%} "
+        f"of the step")
+    del q, k, v
+    # serving half: prefill one 4096-token prompt, then decode 32 tokens
+    del trainer, run
+    prompt = syn.device_batch(0, ShapeConfig("p", seq_len=LM_SEQ,
+                                             global_batch=1, kind="train"),
+                              cfg, "cuda")["tokens"]
+    prefill = M.make_prefill(cfg, LM_SEQ + 32)
+    decode = M.make_decode_step(cfg)
+    prefill(params, {"tokens": prompt})          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, states = prefill(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tok = logits.argmax(-1).int()
+    decode(params, states, {"tokens": tok, "pos": LM_SEQ})   # warm-up
+    logits, states = prefill(params, {"tokens": prompt})
+    tok = logits.argmax(-1).int()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for pos in range(LM_SEQ, LM_SEQ + 32):
+        logits, states = decode(params, states, {"tokens": tok, "pos": pos})
+        tok = logits.argmax(-1).int()
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / 32
+    if not torch.isfinite(logits).all():
+        raise AssertionError("LM decode: non-finite logits")
+    # what a decode token launches: 4 steps under the profiler
+    logits, states = prefill(params, {"tokens": prompt})
+    tok = logits.argmax(-1).int()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for pos in range(LM_SEQ, LM_SEQ + 4):
+            logits, states = decode(params, states,
+                                    {"tokens": tok, "pos": pos})
+            tok = logits.argmax(-1).int()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    kernels = sum(e.count for e in events) / 4
+    busy_ms = sum(e.self_device_time_total for e in events) / 4e3
+    _no_launches("LM prefill/decode")
+    log(f"LM full prefill 1 x {LM_SEQ} (max_len {LM_SEQ + 32}): "
+        f"{prefill_ms:.1f} ms ({LM_SEQ / prefill_ms * 1e3:.1f} tokens/s); "
+        f"decode {decode_ms:.3f} ms a token (32 greedy steps, batch 1); a "
+        f"token launches {kernels:.0f} kernels, device busy {busy_ms:.3f} "
+        f"ms of it (4 steps profiled)")
+
+
 def sm_clock_hz() -> float:
     """The SM clock the card may run at (``clocks.max.sm``), in Hz."""
     out = subprocess.run(
@@ -1134,7 +1574,6 @@ def keyed_sass(name: str) -> dict:
     loop (a backward branch to its target) in ``cuobjdump -sass`` of the
     keyed kernel at the main path's instantiation (bs 128, bf16, colour 0),
     whose trips each update 2 x 8 sites; None where it is not found."""
-    import re
     import shutil
     from repro_torch.kernels import build
     lib, halo = (("checkerboard_tiles", "TileHalo")
@@ -1324,6 +1763,13 @@ def main() -> int:
     phase_kernels_vs_plain(errs)
     phase_main_path(launches)
     phase_small_and_chain()
+    t_lm = time.perf_counter()
+    phase_algorithm1()
+    phase_rbg()
+    phase_lm_small()
+    phase_lm_scores()
+    phase_lm_full()
+    log(f"Algorithm 1, rbg and LM phases: {time.perf_counter() - t_lm:.1f} s")
     t_new = time.perf_counter()
     phase_scenarios_small()
     twins = phase_scenarios_full()

@@ -16,7 +16,11 @@ The JAX package's arrays reach this module as numpy arrays
   :mod:`repro_torch.random`);
 * uint32 thresholds (u24 bond and acceptance tables) become int64 tensors
   holding the same values (:func:`thresholds_to_torch`);
-* uint32 key data becomes the port's host key, a pair of Python ints.
+* uint32 key data becomes the port's host key, a pair of Python ints;
+* the decoder LM's parameter and optimizer-state trees (nested dicts and
+  lists of numpy arrays, ``jax.tree.map(np.asarray, tree)``) become the
+  same trees of tensors (:func:`lm_params_from_jax`,
+  :func:`opt_state_from_jax`).
 """
 from __future__ import annotations
 
@@ -84,3 +88,34 @@ def key_to_numpy(key) -> np.ndarray:
     """The port's key -> uint32 key data [2] (``jnp.asarray`` gives a JAX
     raw key)."""
     return np.asarray(key, dtype=np.uint32)
+
+
+def _tree_to_torch(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to_torch(v, device) for v in tree]
+    return to_torch(np.asarray(tree), device)
+
+
+def lm_params_from_jax(params, cfg, device="cpu") -> dict:
+    """The reference's LM parameter tree (numpy leaves) as the port's,
+    checked leaf by leaf against the port's own tree for ``cfg`` (paths,
+    shapes and dtypes)."""
+    from repro_torch import tree
+    from repro_torch.models import transformer
+    out = _tree_to_torch(params, device)
+    want = tree.paths(transformer.init_model(cfg, device="meta"))
+    got = tree.paths(out)
+    if [(p, tuple(a.shape), a.dtype) for p, a in got] != \
+            [(p, tuple(a.shape), a.dtype) for p, a in want]:
+        raise ValueError(f"the parameter tree does not match {cfg.name}'s: "
+                         f"{[(p, tuple(a.shape)) for p, a in got]}")
+    return out
+
+
+def opt_state_from_jax(state, device="cpu") -> dict:
+    """The reference's optimizer state (numpy leaves; int32 ``count``) as
+    the port's."""
+    return _tree_to_torch(state, device)
+

@@ -25,32 +25,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import tree
+
 _STEP_RE = re.compile(r"step_(\d+)\.npz$")
 
 
-def _flatten(tree, prefix: str = "") -> list:
-    """[(path, leaf)] in the reference's order: dict keys sorted, sequence
-    items in order."""
-    if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out += _flatten(tree[k], f"{prefix}{k}/")
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = []
-        for i, v in enumerate(tree):
-            out += _flatten(v, f"{prefix}{i}/")
-        return out
-    return [(prefix[:-1], tree)]
-
-
-def _unflatten(tree, leaves):
-    """``tree``'s structure with its leaves replaced, in order."""
-    if isinstance(tree, dict):
-        return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_unflatten(v, leaves) for v in tree)
-    return next(leaves)
+# [(path, leaf)] in the reference's order: dict keys sorted, sequence
+# items in order, parts joined by "/"
+_flatten = tree.paths
 
 
 def _leaf_shardings(shardings, n: int) -> list:
@@ -59,12 +41,12 @@ def _leaf_shardings(shardings, n: int) -> list:
     if shardings is None:
         return [None] * n
 
-    def walk(tree):
-        if isinstance(tree, dict):
-            return [s for k in sorted(tree) for s in walk(tree[k])]
-        if isinstance(tree, list):
-            return [s for v in tree for s in walk(v)]
-        return [tree]
+    def walk(node):
+        if isinstance(node, dict):
+            return [s for k in sorted(node) for s in walk(node[k])]
+        if isinstance(node, list):
+            return [s for v in node for s in walk(v)]
+        return [node]
 
     return walk(shardings)
 
@@ -175,4 +157,4 @@ def restore(ckpt_dir: str, like, step: Optional[int] = None,
             else:
                 t = t.to(device)
             out.append(t)
-    return _unflatten(like, iter(out))
+    return tree.unflatten(like, out)

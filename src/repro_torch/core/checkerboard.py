@@ -1,10 +1,12 @@
 """Checkerboard Metropolis updates for the 2-D Ising model (paper §3).
 
-The port of ``repro.core.checkerboard``. Two implementations, bitwise
+The port of ``repro.core.checkerboard``. Three implementations, bitwise
 comparable when fed the same uniforms:
 
 * :func:`update_color_full`    — brute-force oracle on the full [H, W]
                                  lattice (``torch.roll`` neighbour sums).
+* :func:`update_naive`         — paper Algorithm 1: blocked matmuls against
+                                 the tridiagonal kernel K + colour mask M.
 * :func:`update_color_compact` — paper Algorithm 2: compact parity quads,
                                  matmuls against the bidiagonal kernel
                                  K-hat. The products stay ``torch.matmul``:
@@ -53,6 +55,42 @@ def sweep_full(full, probs_black, probs_white, beta, accept: str = "lut",
                field: float = 0.0) -> torch.Tensor:
     full = update_color_full(full, probs_black, beta, 0, accept, field)
     return update_color_full(full, probs_white, beta, 1, accept, field)
+
+
+# ---------------------------------------------------------------------------
+# Paper Algorithm 1 — naive blocked matmul update
+# ---------------------------------------------------------------------------
+
+
+def nn_naive(blocked: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Neighbour sums for a [mr, mc, b, b] blocked lattice (Algorithm 1
+    l.2-6): sigma @ K sums left + right, K @ sigma up + down, then each
+    block adds the edge line of its four torus neighbours."""
+    nn = torch.matmul(blocked, k) + torch.matmul(k, blocked)
+    nn[:, :, 0, :] += torch.roll(blocked, 1, 0)[:, :, -1, :]    # north
+    nn[:, :, -1, :] += torch.roll(blocked, -1, 0)[:, :, 0, :]   # south
+    nn[:, :, :, 0] += torch.roll(blocked, 1, 1)[:, :, :, -1]    # west
+    nn[:, :, :, -1] += torch.roll(blocked, -1, 1)[:, :, :, 0]   # east
+    return nn
+
+
+def update_naive(full, probs, beta, color: int,
+                 block_size: int = L.MXU_BLOCK,
+                 accept: str = "lut") -> torch.Tensor:
+    """Paper Algorithm 1 on a full [H, W] lattice (blocked internally).
+
+    Every site gets a neighbour sum, an acceptance and a uniform; the
+    global colour mask keeps the other colour's flips out (a block's
+    in-block parity is the global parity because ``block_size`` is even).
+    """
+    sig = L.block(full, block_size)
+    k = L.kernel_naive(block_size, full.dtype, full.device)
+    nn = nn_naive(sig, k).to(full.dtype)
+    p = L.block(probs, block_size)
+    acc = rules.metropolis_acceptance(nn, sig, beta, accept)
+    mask = L.color_mask(block_size, color, torch.bool, full.device)
+    flips = (p.to(acc.dtype) < acc) & mask
+    return L.unblock(torch.where(flips, -sig, sig))
 
 
 # ---------------------------------------------------------------------------

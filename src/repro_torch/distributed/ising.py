@@ -22,9 +22,12 @@ Three forms of the colour update, as in the reference:
   the edge provider over the group.
 
 RNG: each rank folds the chain key with its linear grid index, then with
-(step, colour), so no random bits cross ranks. ``rng="rbg"``
-(``lax.rng_bit_generator``) has no reproducible counterpart here and is
-refused.
+(step, colour), so no random bits cross ranks. ``rng="rbg"`` stands for
+the reference's ``lax.rng_bit_generator`` (platform-defined bits, so not
+bitwise the reference's): the opt pipeline's bits come from the device's
+own generator (Philox on CUDA, mt19937 on the CPU) seeded with the folded
+key's two words, so one key gives the same bits on the same device and a
+resumed chain repeats its draws.
 """
 from __future__ import annotations
 
@@ -56,16 +59,13 @@ class DistIsingConfig:
     # integer-threshold acceptance (same flip decisions as the f32 LUT).
     pipeline: str = "paper"
     bits_dtype: str = "uint32"  # "uint16": the draw's low 16 bits (opt)
-    rng: str = "threefry"       # "rbg" is refused (not reproducible)
+    rng: str = "threefry"       # "threefry" | "rbg" (the device generator)
     rule: str = "metropolis"    # update_rules name: "metropolis"|"heat_bath"
 
     def __post_init__(self):
-        if self.rng != "threefry":
-            from repro_torch.api.engine import EngineConfigError
-            raise EngineConfigError(
-                f"rng={self.rng!r} is unsupported in the PyTorch port: "
-                "lax.rng_bit_generator's bits cannot be reproduced; use "
-                "rng='threefry'")
+        if self.rng not in ("threefry", "rbg"):
+            raise ValueError(f"rng must be 'threefry' or 'rbg', "
+                             f"got {self.rng!r}")
         if self.bits_dtype not in ("uint32", "uint16"):
             raise ValueError(f"bits_dtype must be 'uint32' or 'uint16', "
                              f"got {self.bits_dtype!r}")
@@ -94,11 +94,24 @@ def _device_key(key, cfg: DistIsingConfig, grid):
     return jr.fold_in(key, row * grid.axis_size(cfg.col_axes) + col)
 
 
+def rbg_bits(k, shape, device) -> torch.Tensor:
+    """``rng="rbg"``'s uint32 bits (an int32 pattern) for key ``k``: the
+    device generator seeded with the key's two words. The same key gives
+    the same bits on the same device; CPU and CUDA generators differ."""
+    gen = torch.Generator(device)
+    gen.manual_seed((k[0] << 32) | k[1])
+    return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
+                         generator=gen, device=device)
+
+
 def _draw_bits(k, shape, cfg: DistIsingConfig, device) -> torch.Tensor:
-    """Counter-based bits for one colour update: uint32 as an int32
-    pattern, or ``jax.random.bits``'s uint16 (the low 16 bits of the same
-    32-bit draw) as an int16 pattern."""
-    bits = jr.bits(k, shape, device)
+    """Bits for one colour update: uint32 as an int32 pattern, or the low
+    16 bits of the same 32-bit draw as an int16 pattern (as
+    ``jax.random.bits``'s uint16 under threefry)."""
+    if cfg.rng == "rbg":
+        bits = rbg_bits(k, shape, device)
+    else:
+        bits = jr.bits(k, shape, device)
     if cfg.bits_dtype == "uint16":
         bits = ((bits & 0xFFFF) ^ 0x8000) - 0x8000   # sign-extend 16 bits
         bits = bits.to(torch.int16)

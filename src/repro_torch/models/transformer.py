@@ -1,0 +1,294 @@
+"""The decoder: one forward implementation over the per-layer ``pattern``
+string, the port of ``repro.models.transformer`` for its attention kinds:
+
+  'a' global GQA attention, 'l' sliding-window attention,
+
+each followed by a dense MLP. That covers the dense, vlm (a vision-embed
+stub and ``positions [B, S, 3]`` for M-RoPE) and audio (codebooks)
+families. The 'r' (RG-LRU) and 's' (Mamba2) kinds and MoE channel mixers
+are not ported yet and raise :class:`NotImplementedError` naming the
+ROADMAP item that ports them.
+
+Homogeneous patterns keep the reference's stacked layer parameters (a
+leading ``[L, ...]`` axis on every leaf, where the reference runs
+``lax.scan``) and loop over the layers; heterogeneous patterns, or
+``scan_layers=False``, keep a list of per-layer trees. With ``cfg.remat``
+each layer's forward is recomputed in the backward
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn as tnn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import tree
+from repro_torch.core.lattice import torch_dtype
+from repro_torch.models import layers as nn
+
+# what ports the layer kinds and channel mixers of the reference that this
+# module lacks
+_LATER = {"r": "the RG-LRU block ('r'): ROADMAP A19.2",
+          "s": "the Mamba2 SSD block ('s'): ROADMAP A19.3",
+          "moe": "mixture-of-experts layers (n_experts > 0): ROADMAP A19.1"}
+
+
+def check_supported(cfg) -> None:
+    """Raise :class:`NotImplementedError` for what the port lacks."""
+    for kind in sorted(set(cfg.pattern)):
+        if kind in _LATER:
+            raise NotImplementedError(
+                f"{cfg.name}: {_LATER[kind]} is not ported yet")
+        if kind not in ("a", "l"):
+            raise ValueError(f"unknown layer kind {kind!r}")
+    if cfg.n_experts:
+        raise NotImplementedError(f"{cfg.name}: {_LATER['moe']} is not "
+                                  "ported yet")
+
+
+def stacked(cfg) -> bool:
+    """Whether the layers' parameters are stacked [L, ...] (the
+    reference's scan layout)."""
+    return cfg.scan_layers and len(set(cfg.pattern)) == 1
+
+
+# ---------------------------------------------------------------------------
+# per-layer init / apply
+# ---------------------------------------------------------------------------
+
+
+def init_layer(gen, cfg, kind: str, device, lead=()) -> dict:
+    dt = torch_dtype(cfg.dtype)
+    d = cfg.d_model
+    return {"ln1": torch.ones(tuple(lead) + (d,), dtype=dt, device=device),
+            "attn": nn.init_attention(gen, cfg, device, lead),
+            "ln2": torch.ones(tuple(lead) + (d,), dtype=dt, device=device),
+            "mlp": nn.init_mlp(gen, cfg, device, lead=lead)}
+
+
+def _window(cfg, kind: str) -> int:
+    return cfg.window if kind == "l" else 0
+
+
+def apply_layer(p: dict, cfg, kind: str, x, cos, sin):
+    """Full-sequence layer application (train / prefill)."""
+    h = nn.rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + nn.attention_forward(p["attn"], cfg, h, cos, sin,
+                                 _window(cfg, kind))
+    h = nn.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + nn.mlp_forward(p["mlp"], cfg, h)
+
+
+def apply_layer_prefill(p, cfg, kind, x, cos, sin, max_len: int = 0):
+    """Layer application that also returns the layer's decode state."""
+    h = nn.rms_norm(x, p["ln1"], cfg.norm_eps)
+    h, (k, v) = nn.attention_prefill(p["attn"], cfg, h, cos, sin,
+                                     _window(cfg, kind), max_len)
+    x = x + h
+    h2 = nn.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + nn.mlp_forward(p["mlp"], cfg, h2), {"k": k, "v": v}
+
+
+def apply_layer_decode(p, cfg, kind, state, x, pos, cos, sin):
+    """Single-token layer step. x: [B, 1, d]; the state's caches are
+    updated in place."""
+    h = nn.rms_norm(x, p["ln1"], cfg.norm_eps)
+    h, (k, v) = nn.attention_decode(p["attn"], cfg, h,
+                                    (state["k"], state["v"]), pos, cos, sin,
+                                    _window(cfg, kind))
+    x = x + h
+    h2 = nn.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + nn.mlp_forward(p["mlp"], cfg, h2), {"k": k, "v": v}
+
+
+def init_layer_state(cfg, kind: str, batch: int, max_len: int,
+                     device="cpu") -> dict:
+    t = min(cfg.window, max_len) if kind == "l" and cfg.window else max_len
+    if cfg.cache_layout == "bkth":
+        shape = (batch, cfg.n_kv_heads, t, cfg.head_dim)
+    else:
+        shape = (batch, t, cfg.n_kv_heads, cfg.head_dim)
+    dt = torch_dtype(cfg.dtype)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# whole-model init / apply
+# ---------------------------------------------------------------------------
+
+
+def init_model(cfg, generator=None, device="cpu") -> dict:
+    """The parameter tree ``{"emb": ..., "layers": ...}``: stacked
+    ``[L, ...]`` leaves for a homogeneous pattern, else a list of per-layer
+    trees. ``generator`` (a ``torch.Generator`` on ``device``) draws the
+    weights; on the ``meta`` device it may be None (shapes only)."""
+    check_supported(cfg)
+    emb = nn.init_embeddings(generator, cfg, device)
+    if stacked(cfg):
+        layers = init_layer(generator, cfg, cfg.pattern[0], device,
+                            lead=(cfg.n_layers,))
+    else:
+        layers = [init_layer(generator, cfg, kind, device)
+                  for kind in cfg.pattern]
+    return {"emb": emb, "layers": layers}
+
+
+def _layer_params(params, cfg):
+    """[(kind, per-layer tree)] for either layout (views of a stack)."""
+    if stacked(cfg):
+        kind = cfg.pattern[0]
+        return [(kind, tree.map(lambda a, i=i: a[i], params["layers"]))
+                for i in range(cfg.n_layers)]
+    return list(zip(cfg.pattern, params["layers"]))
+
+
+def _rope_tables(cfg, positions):
+    if cfg.rope_style == "none":
+        return None, None
+    sections = cfg.mrope_sections if cfg.rope_style == "mrope" else ()
+    return nn.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, sections)
+
+
+def _embed_inputs(params, cfg, batch: dict) -> torch.Tensor:
+    x = nn.embed_tokens(params["emb"], cfg, batch["tokens"])
+    if "vision_embeds" in batch:   # VLM stub frontend: precomputed patches
+        mask = batch["vision_mask"][..., None]
+        x = torch.where(mask, batch["vision_embeds"].to(x.dtype), x)
+    return x
+
+
+def _positions(batch, b: int, s: int, device):
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, device=device)[None, :].expand(b, s)
+    return positions
+
+
+def forward(params: dict, cfg, batch: dict) -> torch.Tensor:
+    """Full-sequence forward -> f32 logits [B, S, n_emb * padded_vocab]."""
+    check_supported(cfg)
+    x = _embed_inputs(params, cfg, batch)
+    b, s = batch["tokens"].shape[:2]
+    cos, sin = _rope_tables(cfg, _positions(batch, b, s, x.device))
+    for kind, lp in _layer_params(params, cfg):
+        if cfg.remat:
+            x = checkpoint(apply_layer, lp, cfg, kind, x, cos, sin,
+                           use_reentrant=False)
+        else:
+            x = apply_layer(lp, cfg, kind, x, cos, sin)
+    x = nn.rms_norm(x, params["emb"]["ln_f"], cfg.norm_eps)
+    return nn.unembed(params["emb"], cfg, x)
+
+
+def prefill(params: dict, cfg, batch: dict, max_len: int = 0):
+    """Forward + decode-state construction. Returns (logits, states), the
+    states stacked [L, ...] or listed as the parameters are."""
+    check_supported(cfg)
+    x = _embed_inputs(params, cfg, batch)
+    b, s = batch["tokens"].shape[:2]
+    cos, sin = _rope_tables(cfg, _positions(batch, b, s, x.device))
+    states = []
+    for kind, lp in _layer_params(params, cfg):
+        x, st = apply_layer_prefill(lp, cfg, kind, x, cos, sin, max_len)
+        states.append(st)
+    if stacked(cfg):
+        states = {name: torch.stack([st[name] for st in states])
+                  for name in ("k", "v")}
+    x = nn.rms_norm(x, params["emb"]["ln_f"], cfg.norm_eps)
+    return nn.unembed(params["emb"], cfg, x), states
+
+
+def decode_step(params: dict, cfg, states, batch: dict):
+    """One token for every sequence. batch: tokens [B, 1], pos (an int or
+    a 0-d tensor). The states' caches are updated in place.
+
+    Returns (logits [B, 1, V], states).
+    """
+    check_supported(cfg)
+    x = _embed_inputs(params, cfg, batch)
+    pos = int(batch["pos"])
+    b = batch["tokens"].shape[0]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.full((b, 1), pos, device=x.device)
+    cos, sin = _rope_tables(cfg, positions)
+    layer_states = ([{name: states[name][i] for name in ("k", "v")}
+                     for i in range(cfg.n_layers)] if stacked(cfg)
+                    else states)
+    new_states = []
+    for (kind, lp), st in zip(_layer_params(params, cfg), layer_states):
+        x, st = apply_layer_decode(lp, cfg, kind, st, x, pos, cos, sin)
+        new_states.append(st)
+    x = nn.rms_norm(x, params["emb"]["ln_f"], cfg.norm_eps)
+    return nn.unembed(params["emb"], cfg, x), (states if stacked(cfg)
+                                               else new_states)
+
+
+def init_states(cfg, batch: int, max_len: int, device="cpu"):
+    """Zero decode states: stacked [L, ...] caches for a homogeneous
+    pattern, else one per layer."""
+    check_supported(cfg)
+    if stacked(cfg):
+        one = init_layer_state(cfg, cfg.pattern[0], batch, max_len, device)
+        return {name: torch.zeros((cfg.n_layers,) + a.shape, dtype=a.dtype,
+                                  device=device)
+                for name, a in one.items()}
+    return [init_layer_state(cfg, k, batch, max_len, device)
+            for k in cfg.pattern]
+
+
+# ---------------------------------------------------------------------------
+# the model as a module
+# ---------------------------------------------------------------------------
+
+
+class LanguageModel(tnn.Module):
+    """The parameter tree held as ``nn.Parameter``s under the reference's
+    paths (``state_dict`` keys ``emb.tok``, ``layers.attn.wq``, or
+    ``layers.0.attn.wq`` for a per-layer list: the reference's ``/``
+    paths with ``.``), with the functional entry points as methods.
+    :meth:`tree` gives the tree the functions above take."""
+
+    def __init__(self, cfg, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.params = _Node(params)
+
+    @classmethod
+    def init(cls, cfg, generator=None, device="cpu") -> "LanguageModel":
+        return cls(cfg, init_model(cfg, generator, device))
+
+    def tree(self) -> dict:
+        return self.params.tree()
+
+    def forward(self, batch: dict) -> torch.Tensor:
+        return forward(self.tree(), self.cfg, batch)
+
+    def prefill(self, batch: dict, max_len: int = 0):
+        return prefill(self.tree(), self.cfg, batch, max_len)
+
+    def decode_step(self, states, batch: dict):
+        return decode_step(self.tree(), self.cfg, states, batch)
+
+
+class _Node(tnn.Module):
+    """One dict or list of a parameter tree: leaves as parameters,
+    subtrees as child modules, named by their keys or indices."""
+
+    def __init__(self, node):
+        super().__init__()
+        self.is_list = isinstance(node, (list, tuple))
+        self.names = [str(k) for k in (range(len(node)) if self.is_list
+                                       else node)]
+        for name, v in zip(self.names, node if self.is_list
+                           else node.values()):
+            if isinstance(v, (dict, list, tuple)):
+                self.add_module(name, _Node(v))
+            else:
+                self.register_parameter(name, tnn.Parameter(v))
+
+    def tree(self):
+        out = [getattr(self, n) for n in self.names]
+        out = [v.tree() if isinstance(v, _Node) else v for v in out]
+        return out if self.is_list else dict(zip(self.names, out))

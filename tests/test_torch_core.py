@@ -261,6 +261,39 @@ def test_compact_equals_port_oracle(accept, hw, bs):
     torch.testing.assert_close(L.from_quads(got), want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("accept", ["lut", "exp"])
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+@pytest.mark.parametrize("hw,bs", [((16, 16), 4), ((32, 64), 8)])
+def test_update_naive_matches_jax(accept, jdt, tdt, hw, bs):
+    """Paper Algorithm 1, both colours, bitwise against the reference
+    jitted with beta as a literal (``accept="exp"`` through the port's
+    XLA f32 exp), and against the port's full-lattice oracle; the blocked
+    neighbour sums equal the reference's too."""
+    full = _lattice(7, *hw, tdt)
+    jfull = jnp.asarray(bridge.to_numpy(full, jnp.bfloat16)).astype(jdt)
+    rng = np.random.default_rng(8)
+    sig = L.block(full, bs)
+    k = L.kernel_naive(bs, tdt)
+    np.testing.assert_array_equal(
+        CB.nn_naive(sig, k).float().numpy(),
+        _np32(JCB.nn_naive(jnp.asarray(bridge.to_numpy(sig, jnp.bfloat16))
+                           .astype(jdt),
+                           jnp.asarray(bridge.to_numpy(k, jnp.bfloat16))
+                           .astype(jdt))))
+    for beta in (0.3, 0.4406868, 1.0):
+        for color in (0, 1):
+            probs = rng.random(hw, dtype=np.float32)
+            want = jax.jit(lambda f, p: JCB.update_naive(
+                f, p, beta, color, bs, accept))(jfull, jnp.asarray(probs))
+            got = CB.update_naive(full, torch.from_numpy(probs), beta, color,
+                                  bs, accept)
+            assert got.dtype == tdt
+            np.testing.assert_array_equal(got.float().numpy(), _np32(want))
+            oracle = CB.update_color_full(full, torch.from_numpy(probs),
+                                          beta, color, accept)
+            torch.testing.assert_close(got, oracle, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("color", [0, 1])
 @pytest.mark.parametrize("hw,bs", [((16, 16), 4), ((16, 32), 8),
                                    ((32, 64), 16)])

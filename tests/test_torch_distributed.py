@@ -141,8 +141,13 @@ def test_uint16_bits_and_flip_match_reference(rule):
 
 
 def test_rbg_and_bad_bits_are_refused():
-    with pytest.raises(EngineConfigError, match="rbg"):
-        dising.DistIsingConfig(beta=BETA, pipeline="opt", rng="rbg")
+    """``rng="rbg"`` is accepted (its physics is held over gloo ranks in
+    ``test_rbg_opt_pipeline_physics``); an unknown generator, a bits dtype
+    other than uint32/uint16 and int64 bits are refused."""
+    cfg = dising.DistIsingConfig(beta=BETA, pipeline="opt", rng="rbg")
+    assert cfg.rng == "rbg"
+    with pytest.raises(ValueError, match="rng"):
+        dising.DistIsingConfig(beta=BETA, pipeline="opt", rng="philox")
     with pytest.raises(ValueError, match="bits_dtype"):
         dising.DistIsingConfig(beta=BETA, bits_dtype="uint8")
     with pytest.raises(TypeError, match="int32"):
@@ -225,7 +230,39 @@ def _ranks_body(world):
                                                      step)
         out["tuple_vs_stacked"] = torch.equal(stacked, torch.stack(tup))
         out["sends"] = mesh_lib.counters["send"]
+        out["rbg"] = _rbg_physics(grid)
     return out
+
+
+def _rbg_physics(grid):
+    """|m| after 40 opt-pipeline sweeps with ``rng="rbg"`` and uint16 bits
+    on the 2x2 grid at 128^2 (bs 16): a cold start at beta 1.0 and a hot
+    start at beta 0.2, as ``tests/test_ising_opt.py`` runs the reference.
+    Also whether one key drew the same bits twice and another key others."""
+    out = {}
+    for name, beta, seed, full in (
+            ("cold", 1.0, 0, L.cold_lattice(128, 128)),
+            ("hot", 0.2, 1, L.random_lattice(jr.PRNGKey(1), 128, 128))):
+        cfg = dising.DistIsingConfig(beta=beta, block_size=16,
+                                     pipeline="opt", rng="rbg",
+                                     bits_dtype="uint16")
+        place = dising.lattice_spec(cfg)
+        qb = grid.local_block(_blocked_quads(full, 16), place)
+        run = dising.make_run_sweeps_fn(grid, cfg, n_sweeps=40)
+        got = grid.gather(run(qb, jr.PRNGKey(seed)), place)
+        out[name] = abs(float(got.float().mean()))
+    k = jr.fold_in(jr.PRNGKey(2), grid.rank)
+    a = dising.rbg_bits(k, (3, 64), "cpu")
+    out["same_key_same_bits"] = torch.equal(a, dising.rbg_bits(k, (3, 64),
+                                                               "cpu"))
+    out["other_key_other_bits"] = not torch.equal(
+        a, dising.rbg_bits(jr.fold_in(k, 1), (3, 64), "cpu"))
+    return out
+
+
+def _blocked_quads(full, bs):
+    quads = L.to_quads(full)
+    return torch.stack([L.block(quads[i], bs) for i in range(4)]).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -266,6 +303,18 @@ def test_blocked_quad_edges_match_gathered_default():
         np.testing.assert_array_equal(
             want.numpy(), np.asarray(JCB.default_edges(
                 jnp.asarray(xb.numpy()), side)))
+
+
+def test_rbg_opt_pipeline_physics():
+    """``rng="rbg"`` on a 2x2 gloo grid, 128^2, uint16 bits, 40 sweeps: a
+    cold start at beta 1.0 stays ordered (|m| > 0.95) and a hot start at
+    beta 0.2 stays disordered (|m| < 0.2), the reference's own bounds
+    (``tests/test_ising_opt.py::test_opt_pipeline_physics``); its bits are
+    the generator's, the same for the same key."""
+    res = _ranks(4)["rbg"]
+    assert res["cold"] > 0.95, res
+    assert res["hot"] < 0.2, res
+    assert res["same_key_same_bits"] and res["other_key_other_bits"], res
 
 
 def test_neighbor_and_index_unsharded_is_local_roll():
