@@ -40,6 +40,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     batch 8 in 4 microbatches): ms a step, tokens/s, peak memory, the
     losses, the share of the bf16 peak, one step's device time by kernel
     (``torch.profiler``), then prefill 1 x 4096 and 32 decode steps;
+4d. the recurrent, SSM and MoE layers (no kernel): mamba2, recurrentgemma
+    ('rrl') and kimi (MoE, top-8) at ``--scale 0.05`` in f32, card == CPU
+    as in 4c with each config's optimizer; ``launch.train`` resumed ==
+    straight, bitwise, for kimi and mamba2; the main path of these layers,
+    ``launch.train`` at the published mamba2-780m (seq 4096, batch 8 in 4
+    microbatches, 4 steps: ms a step, tokens/s, peak memory, losses, bf16
+    peak share, one microbatch by kernel, the chunked SSD's share), then
+    prefill 1 x 4096 and 32 decode steps; recurrentgemma-2b as published,
+    prefill and decode, and 4 training steps with the depth cut to 12
+    layers (the RG-LRU scan's share); kimi-k2 at its published width with
+    1 layer: prefill 1 x 4096 (dropped slots), 32 decode steps, and the
+    MoE layer against its bound at both shapes;
 5. every other ported scenario at a small size, card == CPU bitwise
    (state, series, moments, extras): ensemble (bf16, f32), tempering
    (with accepted swaps), 3-D
@@ -92,7 +104,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 Every path of phases 4-9 runs with the kernel launch counts set to 0 just
 before and read just after: 2 per sweep for the form the path runs, 0 for
 the other forms and for the scenarios that run no kernel (the serving
-plane, the cluster/Potts meshes, Algorithm 1, rbg and the LM among them).
+plane, the cluster/Potts meshes, Algorithm 1, rbg and every LM family among
+them).
 
 It prints one JSON line of kernel records, then the card line, then the
 contract line ``{"ok": true, "device": {...}}`` last. Without a CUDA device,
@@ -1269,100 +1282,185 @@ def phase_rbg(sweeps: int = 3) -> None:
 LM_ARCH = "qwen3-0.6b"
 LM_SEQ, LM_BATCH, LM_MICRO, LM_STEPS = 4096, 8, 4, 4
 BF16_FLOPS = 989e12          # H100 SXM, dense bf16 (NVIDIA data sheet)
+# the slice-7 families: mamba2-780m (the main path of the new layers),
+# recurrentgemma-2b and kimi-k2 at full width
+SSM_ARCH, REC_ARCH, MOE_ARCH = "mamba2-780m", "recurrentgemma-2b", \
+    "kimi-k2-1t-a32b"
+REC_TRAIN_LAYERS = 12        # depth cut of recurrentgemma's training run
+REC_MICRO = 8
+
+
+def _avg_context(cfg, kind: str, seq: int) -> float:
+    """Keys a query attends to, averaged over a causal sequence: seq / 2
+    for global attention, the trailing window for 'l'."""
+    w = cfg.window if kind == "l" else 0
+    if not w or w >= seq:
+        return seq / 2
+    return (w * (w + 1) / 2 + (seq - w) * w) / seq
+
+
+def lm_forward_flops(cfg, seq: int) -> float:
+    """The forward's FLOPs a token: 2 per weight a token touches (routed
+    and shared experts, the router, the unembedding included), causal
+    attention's QK^T and PV (2 x 2 x context x heads x head_dim), and the
+    chunked SSD's dense products (C.B, the chunk's quadratic form, the
+    chunk states and the cross-chunk term). The RG-LRU scan's elementwise
+    work is not counted."""
+    d, hd = cfg.d_model, cfg.head_dim
+    n_mats = 3 if cfg.activation in ("swiglu", "geglu") else 2
+    flops = 2.0 * d * cfg.padded_vocab * max(cfg.n_codebooks, 1)
+    for kind in cfg.pattern:
+        if kind in ("a", "l"):
+            flops += 2 * d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) \
+                + 2 * cfg.n_heads * hd * d \
+                + 4 * _avg_context(cfg, kind, seq) * cfg.n_heads * hd
+        elif kind == "r":
+            flops += 2 * 5 * d * d
+        else:
+            d_inner = cfg.ssm_expand * d
+            nh, ns = d_inner // cfg.ssm_head_dim, cfg.ssm_state
+            q = min(cfg.ssm_chunk, seq)
+            flops += 2 * d * (2 * d_inner + 2 * ns + nh) + 2 * d_inner * d \
+                + 2 * q * ns + 2 * q * d_inner + 4 * d_inner * ns
+            continue
+        if cfg.n_experts:
+            flops += 2 * d * cfg.n_experts + 2 * n_mats * d * cfg.moe_d_ff \
+                * (cfg.experts_per_token + cfg.n_shared_experts)
+        else:
+            flops += 2 * n_mats * d * cfg.d_ff
+    return flops
 
 
 def lm_model_flops(cfg, batch: int, seq: int) -> float:
-    """Model FLOPs of one train step: 3 x the forward's matmul FLOPs (2 per
-    weight per token, the unembedding included) plus causal attention's
-    QK^T and PV (2 x 2 x seq/2 x heads x head_dim per token per layer).
-    Remat's recomputed forward is not counted."""
-    d, hd = cfg.d_model, cfg.head_dim
-    per_layer = (d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads)
-                 + cfg.n_heads * hd * d + 3 * d * cfg.d_ff)
-    weights = cfg.n_layers * per_layer + d * cfg.padded_vocab
-    attn = cfg.n_layers * 2 * seq * cfg.n_heads * hd
-    return 3.0 * batch * seq * (2.0 * weights + attn)
+    """Model FLOPs of one train step: 3 x the forward's. Remat's
+    recomputed forward is not counted."""
+    return 3.0 * batch * seq * lm_forward_flops(cfg, seq)
 
 
-def phase_lm_small() -> None:
-    """qwen3-0.6b at --scale 0.05 in f32 with the same weights on the card
-    and the CPU: logits, loss, grads, 3 AdamW steps, prefill + 4 decode
-    steps (f32 tolerances of the CPU tests: 1e-5 absolute on logits and
-    loss, 1e-4 of each leaf's largest entry on grads and parameters); then
-    ``repro_torch.launch.train`` on the card with a checkpoint every 2
-    steps, resumed to step 6, equal bitwise to a straight 6-step run."""
-    import shutil
-    import numpy as np
+def _free() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# f32 tolerances of the CPU tests: absolute on logits and losses, of each
+# tensor's largest entry on grads, the state after the optimizer steps and
+# the decode states
+LM_TOL = {"logits": (1e-5, False), "loss": (1e-5, False),
+          "grads": (1e-4, True), "state after 3 steps": (1e-4, True),
+          "prefill logits": (1e-5, False), "decode logits": (1e-5, False),
+          "decode states": (1e-4, True)}
+# a family's own f32 conditioning: one ulp of noise on every initial
+# parameter moves the CPU's results by d; the card is held to
+# max(tolerance, NOISE_MARGIN * d) for each result
+NOISE_MARGIN = 4.0
+
+
+def _lm_outputs(cfg, ocfg, state, device, prompt: int, max_len: int,
+                tokens=None) -> dict:
+    """name -> the f32 results on the CPU: logits, loss and grads of one
+    batch; prefill + 4 decode steps (fed ``tokens`` [B, 4], or greedy,
+    recorded under "tokens") and the decode states; the losses and the
+    whole state after 3 optimizer steps."""
     import torch
     from repro_torch import tree
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import synthetic as syn
-    from repro_torch.kernels import checkerboard as kern
-    from repro_torch.launch import train as launch_train
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
-    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as TS
+    shape = ShapeConfig("small", seq_len=64, global_batch=4, kind="train")
+    out = {}
+
+    def put(name, *ts):
+        out.setdefault(name, []).extend(t.detach().float().cpu() for t in ts)
+
+    batch = syn.device_batch(0, shape, cfg, device)
+    put("logits", T.forward(state["params"], cfg, batch))
+    loss, grads = TS.value_and_grad(cfg)(state["params"], batch)
+    put("loss", loss)
+    put("grads", *tree.leaves(grads))
+    logits, states = M.make_prefill(cfg, max_len)(
+        state["params"], {"tokens": batch["tokens"][:, :prompt]})
+    put("prefill logits", logits)
+    decode = M.make_decode_step(cfg)
+    fed = []
+    for j, pos in enumerate(range(prompt, prompt + 4)):
+        tok = (logits.argmax(-1).int() if tokens is None
+               else tokens[:, j:j + 1].to(device))
+        fed.append(tok.cpu())
+        logits, states = decode(state["params"], states,
+                                {"tokens": tok, "pos": pos})
+        put("decode logits", logits)
+    put("decode states", *tree.leaves(states))
+    out["tokens"] = torch.cat(fed, 1)
+    step = TS.make_train_step(cfg, ocfg)
+    for i in range(3):
+        state, metrics = step(state, syn.device_batch(i, shape, cfg, device))
+        put("loss", metrics["loss"])
+    put("state after 3 steps", *tree.leaves(state))
+    return out
+
+
+def _lm_card_vs_cpu(label: str, cfg, ocfg, seed: int, prompt: int = 48,
+                    max_len: int = 56, calibrate: bool = False) -> tuple:
+    """The same weights on the card and the CPU: logits, loss, grads, 3
+    optimizer steps, prefill + 4 decode steps (the CPU's greedy tokens fed
+    to both), held to ``LM_TOL``; with ``calibrate`` each result's bound is
+    max(``LM_TOL``, ``NOISE_MARGIN`` x what one ulp of noise on the
+    initial parameters moves it on the CPU). Returns (the largest
+    differences, their bounds), by name."""
+    import torch
+    from repro_torch import tree
     from repro_torch.train import train_step as TS
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on: f32 products would not "
                              "be f32")
-    kern.reset_launches()
-    cfg = dataclasses.replace(
-        launch_train._reduce(get_config(LM_ARCH), 0.05), dtype="float32")
-    ocfg = opt.OptimizerConfig(lr=1e-3, warmup_steps=1)
-    shape = ShapeConfig("small", seq_len=64, global_batch=4, kind="train")
-    cpu = TS.init_train_state(cfg, ocfg, torch.Generator().manual_seed(7))
-    dev = tree.map(lambda a: a.to("cuda"), cpu)
-    errs = {}
+    cpu = TS.init_train_state(cfg, ocfg, torch.Generator().manual_seed(seed))
+    want = _lm_outputs(cfg, ocfg, cpu, "cpu", prompt, max_len)
+    got = _lm_outputs(cfg, ocfg, tree.map(lambda a: a.to("cuda"), cpu),
+                      "cuda", prompt, max_len, want["tokens"])
 
-    def err(name, a, b, rel=None):
-        a, b = a.detach().float().cpu(), b.detach().float()
-        e = float((a - b).abs().max())
-        scale = float(b.abs().max()) if rel else 1.0
-        errs[name] = max(errs.get(name, 0.0), e / max(scale, 1e-30))
-        if e > (rel * scale if rel else 1e-5):
-            raise AssertionError(f"LM small {name}: card != CPU, err {e}")
+    def diffs(a_out, b_out):
+        d = {}
+        for name, (tol, rel) in LM_TOL.items():
+            d[name] = [float((a - b).abs().max()) / (
+                max(float(b.abs().max()), 1e-30) if rel else 1.0)
+                for a, b in zip(a_out[name], b_out[name])]
+        return d
 
-    bc = syn.device_batch(0, shape, cfg, "cpu")
-    bd = syn.device_batch(0, shape, cfg, "cuda")
-    err("logits", T.forward(dev["params"], cfg, bd),
-        T.forward(cpu["params"], cfg, bc))
-    (ld, gd), (lc, gc) = (TS.value_and_grad(cfg)(s["params"], b)
-                          for s, b in ((dev, bd), (cpu, bc)))
-    err("loss", ld, lc)
-    for a, b in zip(tree.leaves(gd), tree.leaves(gc)):
-        err("grads", a, b, rel=1e-4)
-    step = TS.make_train_step(cfg, ocfg)
-    for i in range(3):
-        dev, md = step(dev, syn.device_batch(i, shape, cfg, "cuda"))
-        cpu, mc = step(cpu, syn.device_batch(i, shape, cfg, "cpu"))
-        err("loss", md["loss"], mc["loss"])
-    for a, b in zip(tree.leaves(dev), tree.leaves(cpu)):
-        if a.dtype == torch.int32:
-            if not torch.equal(a.cpu(), b):
-                raise AssertionError("LM small: step counts differ")
-        else:
-            err("params after 3 steps", a, b, rel=1e-4)
-    prompt = {"tokens": bc["tokens"][:, :48]}
-    ld, sd = M.make_prefill(cfg, 56)(dev["params"],
-                                     {"tokens": prompt["tokens"].cuda()})
-    lc, sc = M.make_prefill(cfg, 56)(cpu["params"], prompt)
-    err("prefill logits", ld, lc)
-    tok = lc.argmax(-1).int()
-    decode = M.make_decode_step(cfg)
-    for pos in range(48, 52):
-        ld, sd = decode(dev["params"], sd, {"tokens": tok.cuda(), "pos": pos})
-        lc, sc = decode(cpu["params"], sc, {"tokens": tok, "pos": pos})
-        err("decode logits", ld, lc)
-        tok = lc.argmax(-1).int()
-    _no_launches("LM small")
-    log(f"LM small ({LM_ARCH} scale 0.05, f32, {cfg.n_layers} layers, "
-        f"d_model {cfg.d_model}): card == CPU within the f32 tolerances, "
-        f"largest differences {errs}")
-    work = ROOT / "build" / "chip_smoke_train"
+    errs = diffs(got, want)
+    bounds = {name: [tol] * len(errs[name])
+              for name, (tol, _) in LM_TOL.items()}
+    if calibrate:
+        gen = torch.Generator().manual_seed(seed + 1)
+        noisy = tree.map(lambda a: a * (1 + torch.randint(
+            -1, 2, a.shape, generator=gen).float() * 2.0 ** -23)
+            if a.is_floating_point() else a.clone(), cpu)
+        noise = diffs(_lm_outputs(cfg, ocfg, noisy, "cpu", prompt, max_len,
+                                  want["tokens"]), want)
+        bounds = {name: [max(b, NOISE_MARGIN * n) for b, n in
+                         zip(bounds[name], noise[name])] for name in bounds}
+    for name in LM_TOL:
+        for i, (e, b) in enumerate(zip(errs[name], bounds[name])):
+            if not e <= b:
+                raise AssertionError(f"{label} small {name} [{i}]: card != "
+                                     f"CPU, err {e} > {b}")
+    _no_launches(f"{label} small")
+    return ({name: max(v) for name, v in errs.items()},
+            {name: max(v) for name, v in bounds.items()})
+
+
+def _launch_resumed_equals_straight(arch: str, work: Path) -> float:
+    """``repro_torch.launch.train`` on the card (``--scale 0.05``, bf16):
+    4 steps with a checkpoint every 2, resumed to 6, equal bitwise to a
+    straight 6-step run. Returns the seconds of the three runs."""
+    import shutil
+    import numpy as np
+    from repro_torch.launch import train as launch_train
     shutil.rmtree(work, ignore_errors=True)
-    common = ["--arch", LM_ARCH, "--scale", "0.05", "--batch", "8", "--seq",
+    common = ["--arch", arch, "--scale", "0.05", "--batch", "8", "--seq",
               "128", "--microbatches", "2", "--seed", "5"]
     t0 = time.perf_counter()
     for steps, where, every in ((4, "resumed", 2), (6, "resumed", 2),
@@ -1370,17 +1468,39 @@ def phase_lm_small() -> None:
         if launch_train.main(common + ["--steps", str(steps), "--ckpt-dir",
                                        str(work / where), "--ckpt-every",
                                        str(every)]):
-            raise AssertionError("launch.train failed")
-    _no_launches("launch.train")
+            raise AssertionError(f"launch.train {arch} failed")
+    _no_launches(f"launch.train {arch}")
     with np.load(work / "resumed" / "step_00000006.npz") as a, \
             np.load(work / "straight" / "step_00000006.npz") as b:
         if sorted(a.files) != sorted(b.files) or not all(
                 np.array_equal(a[n], b[n]) for n in a.files):
-            raise AssertionError("launch.train: resumed != straight at 6")
+            raise AssertionError(f"launch.train {arch}: resumed != straight "
+                                 "at 6")
     shutil.rmtree(work, ignore_errors=True)
+    return time.perf_counter() - t0
+
+
+def phase_lm_small() -> None:
+    """qwen3-0.6b at --scale 0.05 in f32 with the same weights on the card
+    and the CPU (``_lm_card_vs_cpu``: AdamW); then
+    ``repro_torch.launch.train`` on the card resumed == straight."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import checkerboard as kern
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import optimizer as opt
+    kern.reset_launches()
+    cfg = dataclasses.replace(
+        launch_train._reduce(get_config(LM_ARCH), 0.05), dtype="float32")
+    errs, _ = _lm_card_vs_cpu("LM", cfg, opt.OptimizerConfig(
+        lr=1e-3, warmup_steps=1), seed=7)
+    log(f"LM small ({LM_ARCH} scale 0.05, f32, {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}): card == CPU within the f32 tolerances, "
+        f"largest differences {errs}")
+    secs = _launch_resumed_equals_straight(
+        LM_ARCH, ROOT / "build" / "chip_smoke_train")
     log(f"launch.train on the card (scale 0.05, bf16): 4 steps with a "
         f"checkpoint every 2, resumed to 6 == straight 6, bitwise; "
-        f"{time.perf_counter() - t0:.1f} s for the three runs")
+        f"{secs:.1f} s for the three runs")
 
 
 def phase_lm_scores() -> None:
@@ -1410,28 +1530,201 @@ def phase_lm_scores() -> None:
         f"max rel diff to the f32 product {rel:.2e}")
 
 
-def phase_lm_full() -> None:
-    """``repro_torch.launch.train`` at the published qwen3-0.6b (28 layers,
-    d_model 1024, 16/8 heads of 128, d_ff 3072, vocab 151936, already a
-    multiple of the 128 it is padded to, qk_norm, SwiGLU, bf16), seq 4096, batch 8 in 4 microbatches,
-    AdamW with f32 states, remat, no checkpoint: ms a step after the
-    first, tokens/s, peak memory, the loss of each step, model FLOPs as a
-    share of the bf16 peak; the device time of one microbatch by kernel
-    (``torch.profiler``) and attention's share of a step; then prefill
-    1 x 4096 (max_len 4128) and 32 greedy decode steps, and the kernels a
-    decode token launches."""
+def _small_family_configs() -> dict:
+    """The new families at ``launch.train``'s --scale 0.05 in f32;
+    recurrentgemma keeps a full 'rrl' cycle (3 layers) and a window of 32
+    that a 48-token prompt overruns, so the ring is rolled."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+
+    def small(arch, **kw):
+        return dataclasses.replace(launch_train._reduce(
+            get_config(arch), 0.05), dtype="float32", **kw)
+
+    return {SSM_ARCH: small(SSM_ARCH), REC_ARCH: small(
+        REC_ARCH, n_layers=3, window=32), MOE_ARCH: small(MOE_ARCH)}
+
+
+def phase_lm_small_families() -> None:
+    """mamba2, recurrentgemma and kimi (MoE) small, f32, card == CPU with
+    the same weights and each config's optimizer, each result held to
+    max(the CPU tests' tolerance, ``NOISE_MARGIN`` x the CPU's own
+    response to one ulp of noise on the initial parameters): the SSD's
+    chunk decays exp(cs_i - cs_j) and AdamW's normalised steps where a
+    gradient sign flips amplify last-bit differences, so mamba2's
+    logits differ between the card and the CPU by more than 1e-5 (the
+    phase prints the differences and the bounds). Then
+    ``launch.train`` resumed == straight on the card, bitwise, for kimi
+    (MoE: a deterministic dispatch and combine) and mamba2."""
+    from repro_torch.kernels import checkerboard as kern
+    from repro_torch.train import optimizer as opt
+    kern.reset_launches()
+    for arch, cfg in _small_family_configs().items():
+        t0 = time.perf_counter()
+        errs, bounds = _lm_card_vs_cpu(arch, cfg, opt.OptimizerConfig(
+            kind=cfg.optimizer, lr=1e-3, warmup_steps=1), seed=11,
+            calibrate=True)
+        log(f"{arch} small (scale 0.05, f32, {cfg.n_layers} layers "
+            f"{cfg.pattern}, d_model {cfg.d_model}, experts "
+            f"{cfg.n_experts}, {cfg.optimizer}): card == CPU, largest "
+            f"differences {errs}, bounds {bounds}; "
+            f"{time.perf_counter() - t0:.1f} s")
+    for arch in (MOE_ARCH, SSM_ARCH):
+        secs = _launch_resumed_equals_straight(
+            arch, ROOT / "build" / "chip_smoke_train")
+        log(f"launch.train {arch} on the card (scale 0.05, bf16): resumed "
+            f"to 6 == straight 6, bitwise; {secs:.1f} s for the three runs")
+
+
+def _train_report(label: str, cfg, trainer, res, wall: float, peak: int,
+                  batch: int, seq: int, micro: int) -> float:
+    """Log a full-width training run; returns the median step seconds
+    after the first."""
+    from repro_torch import tree
+    losses = res["losses"]
+    if len(losses) != len(trainer.step_times) or not all(
+            map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: losses {losses}")
+    rest = sorted(trainer.step_times[1:])
+    step_s = rest[len(rest) // 2]
+    tokens = batch * seq
+    flops = lm_model_flops(cfg, batch, seq)
+    n_params = sum(a.numel() for a in tree.leaves(trainer.state["params"]))
+    log(f"{label}: {n_params / 1e9:.4f} B params, seq {seq}, batch {batch} "
+        f"in {micro} microbatches, {len(losses)} steps in {wall:.1f} s (init "
+        f"included); step times "
+        f"{[round(t * 1e3, 1) for t in trainer.step_times]} ms; median after "
+        f"the first {step_s * 1e3:.1f} ms, {tokens / step_s:.1f} tokens/s; "
+        f"losses {losses}; peak memory {peak / 2**30:.2f} GiB; model FLOPs a "
+        f"step {flops:.4e}, {flops / step_s / 1e12:.1f} TFLOP/s = "
+        f"{flops / step_s / BF16_FLOPS:.2%} of the {BF16_FLOPS:.3g} bf16 "
+        f"dense peak (H100 SXM data sheet)")
+    return step_s
+
+
+def _profile_microbatch(label: str, cfg, params, mb) -> None:
+    """One microbatch's forward and backward under the profiler (kernels
+    only): wall, device busy, GEMMs' share, the top 10 kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch import tree
+    from repro_torch.train import train_step as TS
+    grad_fn = TS.value_and_grad(cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        grad_fn(params, mb)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    if not busy:
+        raise AssertionError("the profiler saw no device time")
+    gemm = sum(e.self_device_time_total for e in events
+               if re.search(r"gemm|nvjet|xmma|cutlass", e.key)) / 1e6
+    log(f"{label} profile of one microbatch (forward + backward, remat): "
+        f"{prof_s * 1e3:.1f} ms wall, device busy {busy * 1e3:.1f} ms "
+        f"({busy / prof_s:.1%}), GEMMs {gemm * 1e3:.1f} ms "
+        f"({gemm / busy:.1%} of busy); top kernels by device time:")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"  {e.self_device_time_total / 1e3:9.1f} ms {e.count:6d} x "
+            f"{e.key[:96]}")
+
+
+def _fwd_bwd_ms(fn, inputs) -> tuple:
+    """CUDA-event ms of ``fn(*inputs)`` forward, and forward + backward of
+    the sum of its (first) output into the inputs that require grad."""
+    import torch
+    wrt = [a for a in inputs if a.requires_grad]
+
+    def fwd():
+        out = fn(*inputs)
+        return out[0] if isinstance(out, tuple) else out
+
+    fwd_ms = time_ms(fwd, reps=3, warmup=1)
+    both_ms = time_ms(lambda: torch.autograd.grad(fwd().float().sum(), wrt),
+                      reps=3, warmup=1)
+    return fwd_ms, both_ms
+
+
+def _serve(label: str, cfg, params, seq: int, n_decode: int = 32,
+           batch=None) -> dict:
+    """Prefill one ``seq``-token prompt (max_len seq + n_decode), then
+    ``n_decode`` greedy decode steps, timed on the host clock around
+    synchronised work after a warm-up; then 4 decode steps under the
+    profiler: kernels a token and the device's busy time of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import synthetic as syn
+    from repro_torch.models import model as M
+    prompt = syn.device_batch(0, ShapeConfig("p", seq_len=seq,
+                                             global_batch=1, kind="train"),
+                              cfg, "cuda")["tokens"]
+    prefill = M.make_prefill(cfg, seq + n_decode)
+    decode = M.make_decode_step(cfg)
+    logits, states = prefill(params, {"tokens": prompt})     # warm-up
+    decode(params, states, {"tokens": logits.argmax(-1).int(), "pos": seq})
+    del logits, states
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, states = prefill(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tok = logits.argmax(-1).int()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for pos in range(seq, seq + n_decode):
+        logits, states = decode(params, states, {"tokens": tok, "pos": pos})
+        tok = logits.argmax(-1).int()
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / n_decode
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{label} decode: non-finite logits")
+    del states
+    logits, states = prefill(params, {"tokens": prompt})
+    tok = logits.argmax(-1).int()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for pos in range(seq, seq + 4):
+            logits, states = decode(params, states,
+                                    {"tokens": tok, "pos": pos})
+            tok = logits.argmax(-1).int()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    out = {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
+           "kernels": sum(e.count for e in events) / 4,
+           "busy_ms": sum(e.self_device_time_total for e in events) / 4e3}
+    _no_launches(f"{label} prefill/decode")
+    log(f"{label} prefill 1 x {seq} (max_len {seq + n_decode}): "
+        f"{prefill_ms:.1f} ms ({seq / prefill_ms * 1e3:.1f} tokens/s); "
+        f"decode {decode_ms:.3f} ms a token ({n_decode} greedy steps, batch "
+        f"1); a token launches {out['kernels']:.0f} kernels, device busy "
+        f"{out['busy_ms']:.3f} ms of it (4 steps profiled)")
+    return out
+
+
+def phase_lm_full() -> None:
+    """``repro_torch.launch.train`` at the published qwen3-0.6b (28 layers,
+    d_model 1024, 16/8 heads of 128, d_ff 3072, vocab 151936, already a
+    multiple of the 128 it is padded to, qk_norm, SwiGLU, bf16), seq 4096,
+    batch 8 in 4 microbatches, AdamW with f32 states, remat, no
+    checkpoint: ms a step after the first, tokens/s, peak memory, the loss
+    of each step, model FLOPs as a share of the bf16 peak; the device time
+    of one microbatch by kernel (``torch.profiler``) and attention's share
+    of a step; then prefill 1 x 4096 (max_len 4128) and 32 greedy decode
+    steps, and the kernels a decode token launches."""
+    import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import synthetic as syn
     from repro_torch.kernels import checkerboard as kern
     from repro_torch.launch import train as launch_train
     from repro_torch.models import layers as LY
-    from repro_torch.models import model as M
-    from repro_torch.train import train_step as TS
     kern.reset_launches()
+    _free()
     torch.cuda.reset_peak_memory_stats()
     argv = ["--arch", LM_ARCH, "--scale", "1.0", "--seq", str(LM_SEQ),
             "--batch", str(LM_BATCH), "--microbatches", str(LM_MICRO),
@@ -1448,23 +1741,8 @@ def phase_lm_full() -> None:
     if shape != (28, 1024, 16, 8, 128, 3072, 151936, 151936, True,
                  "swiglu", "bfloat16", True):
         raise AssertionError(f"not the published qwen3-0.6b: {shape}")
-    losses = res["losses"]
-    if len(losses) != LM_STEPS or not all(map(math.isfinite, losses)) or \
-            not losses[-1] < losses[0]:
-        raise AssertionError(f"LM full: losses {losses}")
-    step_s = sorted(trainer.step_times[1:])[len(trainer.step_times[1:]) // 2]
-    tokens = LM_BATCH * LM_SEQ
-    flops = lm_model_flops(cfg, LM_BATCH, LM_SEQ)
-    n_params = sum(a.numel() for a in tree.leaves(trainer.state["params"]))
-    log(f"LM full {LM_ARCH}: {n_params / 1e9:.4f} B params, seq {LM_SEQ}, "
-        f"batch {LM_BATCH} in {LM_MICRO} microbatches, {LM_STEPS} steps in "
-        f"{wall:.1f} s (init included); step times "
-        f"{[round(t * 1e3, 1) for t in trainer.step_times]} ms; median "
-        f"after the first {step_s * 1e3:.1f} ms, {tokens / step_s:.1f} "
-        f"tokens/s; losses {losses}; peak memory {peak / 2**30:.2f} GiB; "
-        f"model FLOPs a step {flops:.4e}, {flops / step_s / 1e12:.1f} "
-        f"TFLOP/s = {flops / step_s / BF16_FLOPS:.2%} of the {BF16_FLOPS:.3g}"
-        f" bf16 dense peak (H100 SXM data sheet)")
+    step_s = _train_report(f"LM full {LM_ARCH}", cfg, trainer, res, wall,
+                           peak, LM_BATCH, LM_SEQ, LM_MICRO)
     # where a step's device time goes: one microbatch's forward and
     # backward under the profiler (kernels only), and the attention of one
     # layer and microbatch alone (CUDA events)
@@ -1472,27 +1750,7 @@ def phase_lm_full() -> None:
         "p", seq_len=LM_SEQ, global_batch=LM_BATCH // LM_MICRO,
         kind="train"), cfg, "cuda")
     params = trainer.state["params"]
-    grad_fn = TS.value_and_grad(cfg)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        grad_fn(params, mb)
-        torch.cuda.synchronize()
-        prof_s = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in events) / 1e6
-    if not busy:
-        raise AssertionError("the profiler saw no device time")
-    gemm = sum(e.self_device_time_total for e in events
-               if re.search(r"gemm|nvjet|xmma|cutlass", e.key)) / 1e6
-    log(f"LM full profile of one microbatch (forward + backward, remat): "
-        f"{prof_s * 1e3:.1f} ms wall, device busy {busy * 1e3:.1f} ms "
-        f"({busy / prof_s:.1%}), GEMMs {gemm * 1e3:.1f} ms "
-        f"({gemm / busy:.1%} of busy); top kernels by device time:")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-        log(f"  {e.self_device_time_total / 1e3:9.1f} ms {e.count:6d} x "
-            f"{e.key[:96]}")
+    _profile_microbatch("LM full", cfg, params, mb)
     del mb
     gen = torch.Generator("cuda").manual_seed(1)
     b = LM_BATCH // LM_MICRO
@@ -1501,10 +1759,7 @@ def phase_lm_full() -> None:
     k, v = (torch.randn(b, LM_SEQ, cfg.n_kv_heads, cfg.head_dim,
                         device="cuda", generator=gen).bfloat16()
             .requires_grad_() for _ in range(2))
-    fwd_ms = time_ms(lambda: LY.flash_attention(q, k, v), reps=3, warmup=1)
-    both_ms = time_ms(lambda: torch.autograd.grad(
-        LY.flash_attention(q, k, v).float().sum(), (q, k, v)), reps=3,
-        warmup=1)
+    fwd_ms, both_ms = _fwd_bwd_ms(LY.flash_attention, (q, k, v))
     attn_s = LM_MICRO * cfg.n_layers * (fwd_ms + both_ms) / 1e3
     log(f"LM full attention of one layer and microbatch [{b}, {LM_SEQ}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads}, {cfg.head_dim}]: forward "
@@ -1512,53 +1767,269 @@ def phase_lm_full() -> None:
         f"(x {LM_MICRO} microbatches x {cfg.n_layers} layers, the forward "
         f"twice under remat) {attn_s * 1e3:.0f} ms, {attn_s / step_s:.1%} "
         f"of the step")
-    del q, k, v
+    del q, k, v, trainer, run
     # serving half: prefill one 4096-token prompt, then decode 32 tokens
-    del trainer, run
-    prompt = syn.device_batch(0, ShapeConfig("p", seq_len=LM_SEQ,
-                                             global_batch=1, kind="train"),
-                              cfg, "cuda")["tokens"]
-    prefill = M.make_prefill(cfg, LM_SEQ + 32)
-    decode = M.make_decode_step(cfg)
-    prefill(params, {"tokens": prompt})          # warm-up
-    torch.cuda.synchronize()
+    _serve("LM full", cfg, params, LM_SEQ)
+    del params
+    _free()
+
+
+def phase_ssm_full() -> None:
+    """The slice's main path: ``repro_torch.launch.train`` at the published
+    mamba2-780m (48 's' layers, d_model 1536, d_inner 3072 = 48 heads of
+    64, d_state 128, chunk 256, vocab 50280 padded to 50304, bf16, AdamW,
+    remat), seq 4096, batch 8 in 4 microbatches, 4 steps: ms a step,
+    tokens/s, the share of the bf16 peak, peak memory, the losses; one
+    microbatch by kernel; the chunked SSD of one layer and microbatch
+    alone (CUDA events) and its share of a step; then prefill 1 x 4096
+    and 32 greedy decode steps."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import checkerboard as kern
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import mamba2
+    kern.reset_launches()
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", SSM_ARCH, "--scale", "1.0", "--seq", str(LM_SEQ),
+            "--batch", str(LM_BATCH), "--microbatches", str(LM_MICRO),
+            "--steps", str(LM_STEPS)]
     t0 = time.perf_counter()
-    logits, states = prefill(params, {"tokens": prompt})
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t0) * 1e3
-    tok = logits.argmax(-1).int()
-    decode(params, states, {"tokens": tok, "pos": LM_SEQ})   # warm-up
-    logits, states = prefill(params, {"tokens": prompt})
-    tok = logits.argmax(-1).int()
-    torch.cuda.synchronize()
+    run = launch_train.train(launch_train.parse_args(argv))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    _no_launches("SSM full")
+    cfg, trainer, res = run["cfg"], run["trainer"], run["result"]
+    d_inner, nheads, _ = mamba2.dims(cfg)
+    shape = (cfg.n_layers, cfg.pattern[0], cfg.d_model, d_inner, nheads,
+             cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk, cfg.vocab_size,
+             cfg.padded_vocab, cfg.dtype, cfg.remat, cfg.optimizer)
+    if shape != (48, "s", 1536, 3072, 48, 64, 128, 256, 50280, 50304,
+                 "bfloat16", True, "adamw"):
+        raise AssertionError(f"not the published mamba2-780m: {shape}")
+    step_s = _train_report(f"SSM full {SSM_ARCH}", cfg, trainer, res, wall,
+                           peak, LM_BATCH, LM_SEQ, LM_MICRO)
+    mb = syn.device_batch(LM_STEPS, ShapeConfig(
+        "p", seq_len=LM_SEQ, global_batch=LM_BATCH // LM_MICRO,
+        kind="train"), cfg, "cuda")
+    params = trainer.state["params"]
+    _profile_microbatch("SSM full", cfg, params, mb)
+    del mb
+    # the chunked SSD alone at one microbatch's shapes (x, B, C in the
+    # model's dtype, dt f32 after softplus, as the mixer feeds it)
+    gen = torch.Generator("cuda").manual_seed(2)
+    b, ns = LM_BATCH // LM_MICRO, cfg.ssm_state
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, device="cuda", generator=gen).to(
+            dtype).requires_grad_()
+
+    x = rnd(b, LM_SEQ, nheads, cfg.ssm_head_dim)
+    dt = torch.nn.functional.softplus(rnd(b, LM_SEQ, nheads,
+                                          dtype=torch.float32)).detach()
+    a = -torch.exp(torch.zeros(nheads, device="cuda"))
+    bm, cm = rnd(b, LM_SEQ, ns), rnd(b, LM_SEQ, ns)
+    fwd_ms, both_ms = _fwd_bwd_ms(
+        lambda *t: mamba2.ssd_chunked(*t, cfg.ssm_chunk),
+        (x, dt.requires_grad_(), a, bm, cm))
+    ssd_s = LM_MICRO * cfg.n_layers * (fwd_ms + both_ms) / 1e3
+    log(f"SSM full chunked SSD of one layer and microbatch [{b}, {LM_SEQ}, "
+        f"{nheads}, {cfg.ssm_head_dim}], d_state {ns}, chunk "
+        f"{cfg.ssm_chunk}: forward {fwd_ms:.2f} ms, forward + backward "
+        f"{both_ms:.2f} ms; a step (x {LM_MICRO} microbatches x "
+        f"{cfg.n_layers} layers, the forward twice under remat) "
+        f"{ssd_s * 1e3:.0f} ms, {ssd_s / step_s:.1%} of the step")
+    del x, dt, bm, cm, trainer, run
+    _serve("SSM full", cfg, params, LM_SEQ)
+    del params
+    _free()
+
+
+def _train_loop(cfg, seq: int, batch: int, micro: int, steps: int,
+                seed: int = 0) -> tuple:
+    """The launcher's loop (``launch.train.train``'s state, step and
+    ``Trainer``) for a config it cannot name (a depth cut). Returns
+    (trainer, result, wall seconds, peak bytes)."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import synthetic as syn
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.trainer import Trainer, TrainLoopConfig
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for pos in range(LM_SEQ, LM_SEQ + 32):
-        logits, states = decode(params, states, {"tokens": tok, "pos": pos})
-        tok = logits.argmax(-1).int()
+    ocfg = opt.OptimizerConfig(kind=cfg.optimizer)
+    gen = torch.Generator("cuda").manual_seed(seed)
+    trainer = Trainer(TS.make_train_step(cfg, ocfg, micro),
+                      TS.init_train_state(cfg, ocfg, gen, "cuda"),
+                      syn.iterate(ShapeConfig("cli", seq_len=seq,
+                                              global_batch=batch,
+                                              kind="train"), cfg, "cuda"),
+                      TrainLoopConfig(total_steps=steps, log_every=1),
+                      log_fn=log)
+    res = trainer.run()
+    return (trainer, res, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated())
+
+
+def phase_rec_full() -> None:
+    """recurrentgemma-2b as published (26 layers 'rrl', d_model 2560, 10
+    heads of 256 with kv 1, window 2048, GeGLU, vocab 256000, bf16): prefill
+    1 x 4096 (max_len 4128) and 32 greedy decode steps (O(1) state per 'r'
+    layer, the window ring per 'l' layer); then 4 training steps at seq
+    4096, batch 8 in 8 microbatches of 1, AdamW, with the depth cut to
+    ``REC_TRAIN_LAYERS`` (the functional AdamW update holds the old and
+    new parameters and moments together: 24 B a parameter, 85 GB at the
+    full 3.55e9); the RG-LRU scan of one layer and microbatch alone and
+    its share of a step."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import checkerboard as kern
+    from repro_torch.models import rglru
+    from repro_torch.models import transformer as T
+    kern.reset_launches()
+    _free()
+    cfg = get_config(REC_ARCH)
+    shape = (cfg.n_layers, cfg.pattern, cfg.d_model, cfg.n_heads,
+             cfg.n_kv_heads, cfg.head_dim, cfg.window, cfg.activation,
+             cfg.vocab_size, cfg.dtype)
+    if shape != (26, "rrlrrlrrlrrlrrlrrlrrlrrlrr", 2560, 10, 1, 256, 2048,
+                 "geglu", 256000, "bfloat16"):
+        raise AssertionError(f"not the published recurrentgemma-2b: {shape}")
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, torch.Generator("cuda").manual_seed(0),
+                          "cuda")
     torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t0) * 1e3 / 32
-    if not torch.isfinite(logits).all():
-        raise AssertionError("LM decode: non-finite logits")
-    # what a decode token launches: 4 steps under the profiler
-    logits, states = prefill(params, {"tokens": prompt})
-    tok = logits.argmax(-1).int()
+    n_params = sum(a.numel() for a in tree.leaves(params))
+    log(f"REC full {REC_ARCH}: {n_params / 1e9:.4f} B params, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    _serve("REC full", cfg, params, LM_SEQ)
+    del params
+    _free()
+    tcfg = dataclasses.replace(cfg, n_layers=REC_TRAIN_LAYERS)
+    trainer, res, wall, peak = _train_loop(tcfg, LM_SEQ, LM_BATCH,
+                                           REC_MICRO, LM_STEPS)
+    _no_launches("REC full train")
+    step_s = _train_report(
+        f"REC full {REC_ARCH} train, depth cut to {tcfg.n_layers} layers "
+        f"{tcfg.pattern}", tcfg, trainer, res, wall, peak, LM_BATCH,
+        LM_SEQ, REC_MICRO)
+    mb = syn.device_batch(LM_STEPS, ShapeConfig(
+        "p", seq_len=LM_SEQ, global_batch=LM_BATCH // REC_MICRO,
+        kind="train"), tcfg, "cuda")
+    _profile_microbatch("REC full", tcfg, trainer.state["params"], mb)
+    del mb
+    rec = T._layer_params(trainer.state["params"], tcfg)[0][1]["rec"]
+    rec = {k: v.detach().requires_grad_(v.is_floating_point())
+           for k, v in rec.items()}
+    u = torch.randn(LM_BATCH // REC_MICRO, LM_SEQ, cfg.d_model,
+                    device="cuda", generator=torch.Generator(
+                        "cuda").manual_seed(3)).bfloat16().requires_grad_()
+    fwd_ms, both_ms = _fwd_bwd_ms(lambda uu, *_: rglru.rglru_scan(rec, uu),
+                                  (u, rec["w_r"], rec["w_i"], rec["lam"]))
+    a, bb = (t.detach().requires_grad_() for t in rglru._gates(rec, u))
+    sfwd, sboth = _fwd_bwd_ms(lambda *t: rglru.associative_scan(
+        rglru._combine, t, 1)[1], (a, bb))
+    n_r = tcfg.pattern.count("r")
+    scan_s = REC_MICRO * n_r * (fwd_ms + both_ms) / 1e3
+    log(f"REC full RG-LRU (gates + log-depth scan) of one layer and "
+        f"microbatch [{LM_BATCH // REC_MICRO}, {LM_SEQ}, {cfg.d_model}]: "
+        f"forward {fwd_ms:.2f} ms, forward + backward {both_ms:.2f} ms (the "
+        f"scan alone {sfwd:.2f} / {sboth:.2f} ms); a step (x {REC_MICRO} "
+        f"microbatches x {n_r} 'r' layers, the forward twice under remat) "
+        f"{scan_s * 1e3:.0f} ms, {scan_s / step_s:.1%} of the step")
+    del trainer, rec, u, a, bb
+    _free()
+
+
+def phase_moe_full() -> None:
+    """kimi-k2-1t-a32b at its published width (d_model 7168, 64 heads of
+    112 with kv 8, 384 experts of d_ff 2048, top-8, 1 shared expert,
+    vocab 163840, bf16), depth cut to 1 layer (19.4e9 parameters): prefill
+    1 x 4096 (max_len 4128) with the share of routed slots dropped beyond
+    capacity (108 an expert), then 32 greedy decode steps; the MoE layer
+    alone at the prefill's and at decode's shapes (CUDA events) against
+    its bound: FLOPs at prefill, and at decode the bytes of every expert
+    weight, which the capacity-4 dispatch reads for one token."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import checkerboard as kern
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    kern.reset_launches()
+    _free()
+    full = get_config(MOE_ARCH)
+    shape = (full.d_model, full.n_heads, full.n_kv_heads, full.head_dim,
+             full.n_experts, full.moe_d_ff, full.experts_per_token,
+             full.n_shared_experts, full.vocab_size, full.dtype)
+    if shape != (7168, 64, 8, 112, 384, 2048, 8, 1, 163840, "bfloat16"):
+        raise AssertionError(f"not the published kimi-k2: {shape}")
+    cfg = dataclasses.replace(full, n_layers=1)
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, torch.Generator("cuda").manual_seed(0),
+                          "cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for pos in range(LM_SEQ, LM_SEQ + 4):
-            logits, states = decode(params, states,
-                                    {"tokens": tok, "pos": pos})
-            tok = logits.argmax(-1).int()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    kernels = sum(e.count for e in events) / 4
-    busy_ms = sum(e.self_device_time_total for e in events) / 4e3
-    _no_launches("LM prefill/decode")
-    log(f"LM full prefill 1 x {LM_SEQ} (max_len {LM_SEQ + 32}): "
-        f"{prefill_ms:.1f} ms ({LM_SEQ / prefill_ms * 1e3:.1f} tokens/s); "
-        f"decode {decode_ms:.3f} ms a token (32 greedy steps, batch 1); a "
-        f"token launches {kernels:.0f} kernels, device busy {busy_ms:.3f} "
-        f"ms of it (4 steps profiled)")
+    n_params = sum(a.numel() for a in tree.leaves(params))
+    log(f"MoE full {MOE_ARCH}, 1 layer: {n_params / 1e9:.4f} B params, "
+        f"init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    kept = []
+    route = moe.route
+
+    def recording(*args, **kw):
+        r = route(*args, **kw)
+        kept.append((int(r["keep"].sum()), r["keep"].numel()))
+        return r
+
+    moe.route = recording
+    try:
+        served = _serve("MoE full", cfg, params, LM_SEQ)
+    finally:
+        moe.route = route
+    # three prefills (warm-up, timed, before the profiled decodes), all
+    # routed alike
+    prefills = [r for r in kept if r[1] == LM_SEQ * cfg.experts_per_token]
+    if len(prefills) != 3 or len(set(prefills)) != 1:
+        raise AssertionError(f"MoE full: prefill routing {prefills}")
+    k_slots, n_slots = prefills[0]
+    pm = T._layer_params(params, cfg)[0][1]["moe"]
+    gen = torch.Generator("cuda").manual_seed(4)
+    for tokens in (LM_SEQ, 1):
+        x = torch.randn(1, tokens, cfg.d_model, device="cuda",
+                        generator=gen).bfloat16()
+        with torch.no_grad():
+            ms = time_ms(lambda: moe.moe_forward(pm, cfg, x), reps=5,
+                         warmup=1)
+        cap = moe.capacity(cfg, tokens)
+        n_mats = 3
+        flops = 2.0 * n_mats * cfg.n_experts * cap * cfg.d_model \
+            * cfg.moe_d_ff + 2.0 * tokens * cfg.d_model * (
+                cfg.n_experts + n_mats * cfg.moe_d_ff * cfg.n_shared_experts)
+        nbytes = sum(a.numel() * a.element_size()
+                     for a in tree.leaves(pm)) + 2 * x.numel() * 2
+        bound = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+        by = "FLOPs" if flops / BF16_FLOPS > nbytes / HBM_BYTES_PER_S \
+            else "bytes"
+        log(f"MoE full layer alone at {tokens} token(s): {ms:.3f} ms; "
+            f"capacity {cap}, {flops:.4e} FLOPs (the {cfg.n_experts} x {cap}"
+            f" buffer), {nbytes / 1e9:.2f} GB of weights; bound "
+            f"{bound:.3f} ms (by {by}), {bound / ms:.1%} of it")
+        if tokens == 1:
+            log(f"MoE full decode: the layer {ms:.3f} ms of "
+                f"{served['decode_ms']:.3f} ms a token ({ms / served['decode_ms']:.1%})")
+        else:
+            log(f"MoE full prefill: {n_slots - k_slots} of {n_slots} routed "
+                f"slots dropped beyond capacity ({(n_slots - k_slots) / n_slots:.2%}); "
+                f"the layer {ms:.1f} ms of the prefill's "
+                f"{served['prefill_ms']:.1f} ms ({ms / served['prefill_ms']:.1%})")
+    _no_launches("MoE full")
+    del params, pm, x
+    _free()
 
 
 def sm_clock_hz() -> float:
@@ -1764,11 +2235,12 @@ def main() -> int:
     phase_main_path(launches)
     phase_small_and_chain()
     t_lm = time.perf_counter()
-    phase_algorithm1()
-    phase_rbg()
-    phase_lm_small()
-    phase_lm_scores()
-    phase_lm_full()
+    for phase in (phase_algorithm1, phase_rbg, phase_lm_small,
+                  phase_lm_scores, phase_lm_full, phase_lm_small_families,
+                  phase_ssm_full, phase_rec_full, phase_moe_full):
+        t0 = time.perf_counter()
+        phase()
+        log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
     log(f"Algorithm 1, rbg and LM phases: {time.perf_counter() - t_lm:.1f} s")
     t_new = time.perf_counter()
     phase_scenarios_small()

@@ -1,4 +1,5 @@
-"""Training launcher for the decoder LM, ported: any ported arch on one
+"""Training launcher for the decoder LM, ported: every registered arch
+(dense, MoE, VLM, audio, the RG-LRU hybrid and the Mamba2 SSM) on one
 device, the microbatched train step and the fault-tolerant loop.
 
 The port of ``repro.launch.train``, one device only: the sharding engine
@@ -8,6 +9,10 @@ slice (ROADMAP A19.4) and is refused until then.
     # on the card (the default device)
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --steps 20 --batch 16 --seq 128 --scale 0.1 --ckpt-dir /tmp/ck
+
+    # the published mamba2-780m on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \\
+        --scale 1.0 --seq 4096 --batch 8 --microbatches 4 --steps 4
 
     # on the CPU
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
@@ -94,13 +99,15 @@ def train(args, log_fn=print) -> dict:
            f"params~{cfg.param_count()/1e6:.1f}M device={device}")
     gen = torch.Generator(device)
     gen.manual_seed(args.seed)
-    state = TS.init_train_state(cfg, ocfg, gen, device)
     step_fn = TS.make_train_step(cfg, ocfg, args.microbatches)
     tcfg = TrainLoopConfig(total_steps=args.steps,
                            ckpt_dir=args.ckpt_dir or None,
                            ckpt_every=args.ckpt_every,
                            log_every=max(1, args.steps // 20))
-    trainer = Trainer(step_fn, state, None, tcfg, log_fn=log_fn)
+    # the trainer holds the only reference to the state, so each step's
+    # old state is freed once the step returns its successor
+    trainer = Trainer(step_fn, TS.init_train_state(cfg, ocfg, gen, device),
+                      None, tcfg, log_fn=log_fn)
     previous = signal.getsignal(signal.SIGTERM)
     trainer.install_signal_handler()
     try:

@@ -1,2 +1,3 @@
-"""The decoder LM: layers, the transformer and the model API (the port of
-``repro.models``, its attention kinds with the dense MLP)."""
+"""The decoder LM: layers, the RG-LRU, Mamba2 and MoE blocks, the
+transformer and the model API (the port of ``repro.models`` on one
+device)."""

@@ -31,9 +31,10 @@ from repro_torch.core.lattice import torch_dtype
 
 
 def _normal(gen, shape, dtype, scale, device):
-    """N(0, scale^2) drawn in f32, then cast (the reference's ``_normal``)."""
+    """N(0, scale^2) drawn in f32, scaled in place (one f32 temporary),
+    then cast (the reference's ``_normal``)."""
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 def dense_init(gen, shape, dtype, device, in_axes=(0,), lead=()):

@@ -1,0 +1,154 @@
+"""RG-LRU recurrent block (Griffin / RecurrentGemma, arXiv:2402.19427): the
+port of ``repro.models.rglru``.
+
+Block: two parallel projections d_model -> d_rnn; branch 1 goes through a
+width-4 causal conv then the Real-Gated LRU; branch 2 is a GeLU gate; the
+product is projected back. Training computes the affine recurrence
+h_t = a_t h_{t-1} + b_t with a log-depth scan (:func:`associative_scan`,
+the odd/even recursion of ``jax.lax.associative_scan``, so the f32
+products associate as the reference's do); decode is the O(1) step and
+updates its state in place.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.lattice import torch_dtype
+from repro_torch.models import layers as nn
+from repro_torch.models.mamba2 import causal_conv, conv_step
+
+_C = 8.0  # Griffin's gate sharpness constant
+
+
+def init_rglru(gen, cfg, device, lead=()) -> dict:
+    d = cfg.d_model
+    d_rnn = d  # RecurrentGemma-2B: d_rnn == d_model (2560)
+    dt = torch_dtype(cfg.dtype)
+    f32 = torch.float32
+
+    def dense(shape):
+        return nn.dense_init(gen, shape, dt, device, lead=lead)
+
+    return {
+        "wx": dense((d, d_rnn)),
+        "wy": dense((d, d_rnn)),
+        "conv_w": dense((cfg.conv_width, d_rnn)),
+        "conv_b": nn._zeros((d_rnn,), dt, device, lead),
+        "w_r": dense((d_rnn, d_rnn)),
+        "b_r": nn._zeros((d_rnn,), f32, device, lead),
+        "w_i": dense((d_rnn, d_rnn)),
+        "b_i": nn._zeros((d_rnn,), f32, device, lead),
+        "lam": torch.full(tuple(lead) + (d_rnn,), 0.65, dtype=f32,
+                          device=device),
+        "out": dense((d_rnn, d)),
+    }
+
+
+def _gates(p, u):
+    """Returns (a, gated input b) in f32 for the recurrence."""
+    uf = u.float()
+    r = torch.sigmoid(uf @ p["w_r"].float() + p["b_r"])
+    i = torch.sigmoid(uf @ p["w_i"].float() + p["b_i"])
+    log_a = -_C * F.softplus(p["lam"]) * r
+    a = torch.exp(log_a)
+    # sqrt(1 - a^2) input normalization keeps the state bounded
+    b = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * uf)
+    return a, b
+
+
+def _combine(x, y):
+    a1, b1 = x
+    a2, b2 = y
+    return a1 * a2, a2 * b1 + b2
+
+
+def _interleave(even, odd, dim: int):
+    """[e0, o0, e1, o1, ...] along ``dim``; ``even`` may be one longer."""
+    n = odd.shape[dim]
+    both = torch.stack([even.narrow(dim, 0, n), odd], dim + 1).flatten(
+        dim, dim + 1)
+    if even.shape[dim] == n:
+        return both
+    return torch.cat([both, even.narrow(dim, n, 1)], dim)
+
+
+def associative_scan(fn, elems: tuple, dim: int) -> tuple:
+    """Inclusive scan of the associative ``fn`` over a tuple of tensors
+    along ``dim`` (>= 0), by ``jax.lax.associative_scan``'s recursion:
+    combine adjacent pairs, scan the pairs, then fill in the even
+    positions."""
+    n = elems[0].shape[dim]
+    if n < 2:
+        return elems
+
+    def sl(e, start, stop=None, step=1):
+        idx = [slice(None)] * e.dim()
+        idx[dim] = slice(start, stop, step)
+        return e[tuple(idx)]
+
+    reduced = fn(tuple(sl(e, 0, -1, 2) for e in elems),
+                 tuple(sl(e, 1, None, 2) for e in elems))
+    odd = associative_scan(fn, reduced, dim)
+    if n % 2 == 0:
+        even = fn(tuple(sl(e, 0, -1) for e in odd),
+                  tuple(sl(e, 2, None, 2) for e in elems))
+    else:
+        even = fn(odd, tuple(sl(e, 2, None, 2) for e in elems))
+    even = tuple(torch.cat([sl(e, 0, 1), r], dim)
+                 for e, r in zip(elems, even))
+    return tuple(_interleave(e, o, dim) for e, o in zip(even, odd))
+
+
+def rglru_scan(p, u):
+    """u: [B, S, d_rnn] -> hidden states [B, S, d_rnn] (f32) by the
+    log-depth scan."""
+    return associative_scan(_combine, _gates(p, u), 1)[1]
+
+
+def rglru_reference(p, u):
+    """Sequential oracle for tests."""
+    a, b = _gates(p, u)
+    hs = []
+    h = torch.zeros_like(a[:, 0])
+    for t in range(u.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def rglru_forward(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Full recurrent block over [B, S, d] (train / prefill)."""
+    return _block(p, x)[0]
+
+
+def _block(p: dict, x: torch.Tensor):
+    """(block output, the raw pre-conv branch, the hidden states f32)."""
+    branch = x @ p["wx"]
+    gate = F.gelu(x @ p["wy"], approximate="tanh")
+    h = rglru_scan(p, causal_conv(branch, p["conv_w"], p["conv_b"]))
+    return (h.to(x.dtype) * gate) @ p["out"], branch, h
+
+
+def init_rglru_state(cfg, batch: int, device="cpu") -> dict:
+    d_rnn = cfg.d_model
+    return {
+        "conv": torch.zeros((batch, cfg.conv_width - 1, d_rnn),
+                            dtype=torch_dtype(cfg.dtype), device=device),
+        "h": torch.zeros((batch, d_rnn), dtype=torch.float32, device=device),
+    }
+
+
+def rglru_decode(p: dict, cfg, state: dict, x: torch.Tensor):
+    """x: [B, 1, d] -> (y [B, 1, d], state), the state's ``conv`` and
+    ``h`` updated in place."""
+    branch = x[:, 0] @ p["wx"]
+    gate = F.gelu(x[:, 0] @ p["wy"], approximate="tanh")
+    conv_out, window = conv_step(state["conv"], branch, p["conv_w"],
+                                 p["conv_b"])
+    a, b = _gates(p, conv_out)
+    h = a * state["h"] + b
+    y = (h.to(x.dtype) * gate) @ p["out"]
+    state["conv"].copy_(window)
+    state["h"].copy_(h)
+    return y[:, None], state

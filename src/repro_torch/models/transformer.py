@@ -1,49 +1,46 @@
 """The decoder: one forward implementation over the per-layer ``pattern``
-string, the port of ``repro.models.transformer`` for its attention kinds:
+string, the port of ``repro.models.transformer`` for every layer kind:
 
   'a' global GQA attention, 'l' sliding-window attention,
+  'r' RG-LRU recurrent block, 's' Mamba2 SSD mixer.
 
-each followed by a dense MLP. That covers the dense, vlm (a vision-embed
-stub and ``positions [B, S, 3]`` for M-RoPE) and audio (codebooks)
-families. The 'r' (RG-LRU) and 's' (Mamba2) kinds and MoE channel mixers
-are not ported yet and raise :class:`NotImplementedError` naming the
-ROADMAP item that ports them.
+The channel mixer is a dense MLP or, with ``n_experts > 0``, a
+token-dropping MoE (its aux loss is discarded, as the reference discards
+it); 's' layers are self-contained (no ``ln2`` or channel mixer), as in
+Mamba2. That covers all ten registered architectures: dense, moe, vlm (a
+vision-embed stub and ``positions [B, S, 3]`` for M-RoPE), audio
+(codebooks), hybrid and ssm.
 
 Homogeneous patterns keep the reference's stacked layer parameters (a
 leading ``[L, ...]`` axis on every leaf, where the reference runs
 ``lax.scan``) and loop over the layers; heterogeneous patterns, or
-``scan_layers=False``, keep a list of per-layer trees. With ``cfg.remat``
-each layer's forward is recomputed in the backward
-(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
+``scan_layers=False``, keep a list of per-layer trees. Decode states
+follow the same layout: one dict of stacked ``[L, ...]`` leaves, or a list
+of per-layer dicts (``k``/``v`` caches, ``conv``/``h`` or ``conv``/``ssm``
+recurrent states). With ``cfg.remat`` each layer's forward is recomputed
+in the backward (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint``.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn as tnn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.core.lattice import torch_dtype
 from repro_torch.models import layers as nn
+from repro_torch.models import mamba2, moe, rglru
 
-# what ports the layer kinds and channel mixers of the reference that this
-# module lacks
-_LATER = {"r": "the RG-LRU block ('r'): ROADMAP A19.2",
-          "s": "the Mamba2 SSD block ('s'): ROADMAP A19.3",
-          "moe": "mixture-of-experts layers (n_experts > 0): ROADMAP A19.1"}
+KINDS = ("a", "l", "r", "s")
 
 
 def check_supported(cfg) -> None:
-    """Raise :class:`NotImplementedError` for what the port lacks."""
+    """Raise :class:`ValueError` for a layer kind the decoder lacks."""
     for kind in sorted(set(cfg.pattern)):
-        if kind in _LATER:
-            raise NotImplementedError(
-                f"{cfg.name}: {_LATER[kind]} is not ported yet")
-        if kind not in ("a", "l"):
+        if kind not in KINDS:
             raise ValueError(f"unknown layer kind {kind!r}")
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: {_LATER['moe']} is not "
-                                  "ported yet")
 
 
 def stacked(cfg) -> bool:
@@ -60,49 +57,111 @@ def stacked(cfg) -> bool:
 def init_layer(gen, cfg, kind: str, device, lead=()) -> dict:
     dt = torch_dtype(cfg.dtype)
     d = cfg.d_model
-    return {"ln1": torch.ones(tuple(lead) + (d,), dtype=dt, device=device),
-            "attn": nn.init_attention(gen, cfg, device, lead),
-            "ln2": torch.ones(tuple(lead) + (d,), dtype=dt, device=device),
-            "mlp": nn.init_mlp(gen, cfg, device, lead=lead)}
+    params = {"ln1": nn._ones((d,), dt, device, lead)}
+    if kind in ("a", "l"):
+        params["attn"] = nn.init_attention(gen, cfg, device, lead)
+    elif kind == "r":
+        params["rec"] = rglru.init_rglru(gen, cfg, device, lead)
+    elif kind == "s":
+        params["ssm"] = mamba2.init_mamba2(gen, cfg, device, lead)
+    else:
+        raise ValueError(kind)
+    if kind != "s":
+        params["ln2"] = nn._ones((d,), dt, device, lead)
+        if cfg.n_experts:
+            params["moe"] = moe.init_moe(gen, cfg, device, lead)
+        else:
+            params["mlp"] = nn.init_mlp(gen, cfg, device, lead=lead)
+    return params
 
 
 def _window(cfg, kind: str) -> int:
     return cfg.window if kind == "l" else 0
 
 
+def _channel_mix(p, cfg, x):
+    """x + the MLP or MoE of ``rms_norm(x)`` (the aux loss discarded)."""
+    h = nn.rms_norm(x, p["ln2"], cfg.norm_eps)
+    if cfg.n_experts:
+        h, _ = moe.moe_forward(p["moe"], cfg, h)
+    else:
+        h = nn.mlp_forward(p["mlp"], cfg, h)
+    return x + h
+
+
 def apply_layer(p: dict, cfg, kind: str, x, cos, sin):
     """Full-sequence layer application (train / prefill)."""
     h = nn.rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + nn.attention_forward(p["attn"], cfg, h, cos, sin,
+    if kind in ("a", "l"):
+        h = nn.attention_forward(p["attn"], cfg, h, cos, sin,
                                  _window(cfg, kind))
-    h = nn.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + nn.mlp_forward(p["mlp"], cfg, h)
+    elif kind == "r":
+        h = rglru.rglru_forward(p["rec"], cfg, h)
+    else:
+        h = mamba2.mamba2_forward(p["ssm"], cfg, h)
+    x = x + h
+    return x if kind == "s" else _channel_mix(p, cfg, x)
 
 
 def apply_layer_prefill(p, cfg, kind, x, cos, sin, max_len: int = 0):
     """Layer application that also returns the layer's decode state."""
     h = nn.rms_norm(x, p["ln1"], cfg.norm_eps)
-    h, (k, v) = nn.attention_prefill(p["attn"], cfg, h, cos, sin,
-                                     _window(cfg, kind), max_len)
+    if kind in ("a", "l"):
+        h, (k, v) = nn.attention_prefill(p["attn"], cfg, h, cos, sin,
+                                         _window(cfg, kind), max_len)
+        state = {"k": k, "v": v}
+    elif kind == "r":
+        # the decode window carries the RAW pre-conv inputs
+        h, branch_raw, hs = rglru._block(p["rec"], h)
+        state = {"conv": _conv_tail(branch_raw, cfg.conv_width - 1),
+                 "h": hs[:, -1].clone()}
+    else:
+        h, state = _mamba2_prefill(p["ssm"], cfg, h)
     x = x + h
-    h2 = nn.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + nn.mlp_forward(p["mlp"], cfg, h2), {"k": k, "v": v}
+    return (x if kind == "s" else _channel_mix(p, cfg, x)), state
+
+
+def _conv_tail(raw: torch.Tensor, w: int) -> torch.Tensor:
+    """Last ``w`` pre-conv inputs (a copy), zero-padded at the front if
+    s < w."""
+    s = raw.shape[1]
+    if s >= w:
+        return raw[:, -w:].clone()
+    return F.pad(raw, (0, 0, w - s, 0))
+
+
+def _mamba2_prefill(p, cfg, xin):
+    """mamba2 forward that also returns the final (conv, ssm) state."""
+    y, xbc_raw, h_final = mamba2._mixer(p, cfg, xin)
+    return y, {"conv": _conv_tail(xbc_raw, cfg.conv_width - 1),
+               "ssm": h_final}
 
 
 def apply_layer_decode(p, cfg, kind, state, x, pos, cos, sin):
-    """Single-token layer step. x: [B, 1, d]; the state's caches are
+    """Single-token layer step. x: [B, 1, d]; the state's tensors are
     updated in place."""
     h = nn.rms_norm(x, p["ln1"], cfg.norm_eps)
-    h, (k, v) = nn.attention_decode(p["attn"], cfg, h,
-                                    (state["k"], state["v"]), pos, cos, sin,
-                                    _window(cfg, kind))
+    if kind in ("a", "l"):
+        h, (k, v) = nn.attention_decode(p["attn"], cfg, h,
+                                        (state["k"], state["v"]), pos, cos,
+                                        sin, _window(cfg, kind))
+        state = {"k": k, "v": v}
+    elif kind == "r":
+        h, state = rglru.rglru_decode(p["rec"], cfg, state, h)
+    else:
+        h, state = mamba2.mamba2_decode(p["ssm"], cfg, state, h)
     x = x + h
-    h2 = nn.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + nn.mlp_forward(p["mlp"], cfg, h2), {"k": k, "v": v}
+    return (x if kind == "s" else _channel_mix(p, cfg, x)), state
 
 
 def init_layer_state(cfg, kind: str, batch: int, max_len: int,
                      device="cpu") -> dict:
+    if kind == "r":
+        return rglru.init_rglru_state(cfg, batch, device)
+    if kind == "s":
+        return mamba2.init_mamba2_state(cfg, batch, device)
+    if kind not in ("a", "l"):
+        raise ValueError(kind)
     t = min(cfg.window, max_len) if kind == "l" and cfg.window else max_len
     if cfg.cache_layout == "bkth":
         shape = (batch, cfg.n_kv_heads, t, cfg.head_dim)
@@ -194,14 +253,14 @@ def prefill(params: dict, cfg, batch: dict, max_len: int = 0):
         states.append(st)
     if stacked(cfg):
         states = {name: torch.stack([st[name] for st in states])
-                  for name in ("k", "v")}
+                  for name in states[0]}
     x = nn.rms_norm(x, params["emb"]["ln_f"], cfg.norm_eps)
     return nn.unembed(params["emb"], cfg, x), states
 
 
 def decode_step(params: dict, cfg, states, batch: dict):
     """One token for every sequence. batch: tokens [B, 1], pos (an int or
-    a 0-d tensor). The states' caches are updated in place.
+    a 0-d tensor). The states' tensors are updated in place.
 
     Returns (logits [B, 1, V], states).
     """
@@ -213,7 +272,7 @@ def decode_step(params: dict, cfg, states, batch: dict):
     if positions is None:
         positions = torch.full((b, 1), pos, device=x.device)
     cos, sin = _rope_tables(cfg, positions)
-    layer_states = ([{name: states[name][i] for name in ("k", "v")}
+    layer_states = ([{name: leaf[i] for name, leaf in states.items()}
                      for i in range(cfg.n_layers)] if stacked(cfg)
                     else states)
     new_states = []
@@ -226,8 +285,8 @@ def decode_step(params: dict, cfg, states, batch: dict):
 
 
 def init_states(cfg, batch: int, max_len: int, device="cpu"):
-    """Zero decode states: stacked [L, ...] caches for a homogeneous
-    pattern, else one per layer."""
+    """Zero decode states: stacked [L, ...] leaves for a homogeneous
+    pattern, else one dict per layer."""
     check_supported(cfg)
     if stacked(cfg):
         one = init_layer_state(cfg, cfg.pattern[0], batch, max_len, device)
@@ -256,7 +315,14 @@ class LanguageModel(tnn.Module):
         self.params = _Node(params)
 
     @classmethod
-    def init(cls, cfg, generator=None, device="cpu") -> "LanguageModel":
+    def init(cls, cfg, generator=None, device="cuda") -> "LanguageModel":
+        """A model with fresh weights on ``device``: the card by default,
+        failing when there is none (pass ``device="cpu"`` for the CPU)."""
+        if torch.device(device).type == "cuda" and \
+                not torch.cuda.is_available():
+            raise RuntimeError("LanguageModel.init builds on the CUDA device "
+                               "by default and none is available; pass "
+                               "device='cpu' to build on the CPU")
         return cls(cfg, init_model(cfg, generator, device))
 
     def tree(self) -> dict:

@@ -1,10 +1,12 @@
 """The port's decoder LM against the JAX package's on the CPU, with the
 reference's parameters carried across (``bridge.lm_params_from_jax``):
-logits, loss and parameter grads for each ported family at the reference
-tests' ``small_config``, a sliding-window stack and a per-layer list
-with attention biases,
-prefill followed by decode in both cache layouts and the ring buffer, and
-the model API around them.
+logits, loss and parameter grads for the attention families at the
+reference tests' ``small_config``, a sliding-window stack and a per-layer
+list with attention biases, prefill followed by decode in both cache
+layouts and the ring buffer, the model API around them, and the parameter
+tree of every registered architecture at its published config.
+(``test_torch_lm_ssm.py`` and ``test_torch_lm_moe.py`` hold the
+recurrent, SSM and MoE families.)
 
 Tolerances (f32): logits and loss within 1e-5 absolute; each parameter's
 gradient within 1e-4 of its largest entry. The two packages' f32 matmuls,
@@ -56,8 +58,11 @@ def port_cfg(jcfg) -> ModelConfig:
 
 
 def carried(jcfg, seed=0):
-    """(reference params, the same params in the port)."""
-    params, _ = JT.init_model(jax.random.PRNGKey(seed), jcfg)
+    """(reference params, the same params in the port). The init is
+    jitted: eager, every op of it compiles on its own (13 s for kimi's
+    small config)."""
+    params = jax.jit(lambda k: JT.init_model(k, jcfg)[0])(
+        jax.random.PRNGKey(seed))
     return params, bridge.lm_params_from_jax(
         jax.tree.map(np.asarray, params), port_cfg(jcfg))
 
@@ -224,16 +229,27 @@ def test_cross_entropy_masks_padded_vocab():
     assert float(loss) == float(want)
 
 
-@pytest.mark.parametrize("arch,item", [("recurrentgemma-2b", "A19.2"),
-                                       ("mamba2-780m", "A19.3"),
-                                       ("kimi-k2-1t-a32b", "A19.1")])
-def test_unported_layer_kinds_name_their_roadmap_item(arch, item):
+@pytest.mark.parametrize("arch", ["qwen3-4b", "qwen3-0.6b",
+                                  "nemotron-4-15b", "command-r-35b",
+                                  "llama4-maverick-400b-a17b",
+                                  "kimi-k2-1t-a32b", "qwen2-vl-7b",
+                                  "musicgen-medium", "recurrentgemma-2b",
+                                  "mamba2-780m"])
+def test_full_config_tree_is_the_reference_tree(arch):
+    """Every registered architecture at its published config: the port's
+    parameter tree (on the ``meta`` device) has the reference's paths,
+    shapes and dtypes (``jax.eval_shape`` of its init), and the port's
+    config is the reference's field for field."""
+    from repro.configs import get_config as jget_config
+    jcfg = jget_config(arch)
     cfg = get_config(arch)
-    for fn in (lambda: T.init_model(cfg, device="meta"),
-               lambda: T.forward({}, cfg, {}),
-               lambda: T.init_states(cfg, 1, 8)):
-        with pytest.raises(NotImplementedError, match=item):
-            fn()
+    assert cfg == port_cfg(jcfg)
+    want = jax.eval_shape(
+        lambda: JT.init_model(jax.random.PRNGKey(0), jcfg)[0])
+    got = T.init_model(cfg, device="meta")
+    assert [(p, tuple(a.shape), str(a.dtype).split(".")[-1])
+            for p, a in tree.paths(got)] == [
+        (p, tuple(a.shape), str(a.dtype)) for p, a in tree.paths(want)]
 
 
 def test_module_holds_the_reference_paths():
@@ -252,6 +268,9 @@ def test_module_holds_the_reference_paths():
     listed = port_cfg(small_config("qwen3-0.6b", scan_layers=False))
     assert "params.layers.1.attn.wq" in T.LanguageModel.init(
         listed, device="meta").state_dict()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            T.LanguageModel.init(listed)
     with pytest.raises(ValueError, match="does not match"):
         bridge.lm_params_from_jax(jax.tree.map(np.asarray, jparams),
                                   dataclasses.replace(cfg, d_ff=96))
