@@ -52,6 +52,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     layers (the RG-LRU scan's share); kimi-k2 at its published width with
     1 layer: prefill 1 x 4096 (dropped slots), 32 decode steps, and the
     MoE layer against its bound at both shapes;
+4e. the LM sharding engine (no kernel), each part on a one-rank NCCL
+    group: ``launch.train --mesh 1,1`` at 4c's published qwen3-0.6b
+    (the sharded step) with losses and grad norms bitwise 4c's, ms a step
+    and peak memory beside 4c's; ``psum_compressed`` of one microbatch's
+    gradient tree bitwise the quantize / dequantize round trip, timed;
+    kimi's MoE layer of 4d at prefill 1 x 4096 through ``moe_forward_ep``
+    bitwise ``moe_forward``, and one rank's share of the production
+    16-way model axis (24 of 384 experts) against its byte bound;
 5. every other ported scenario at a small size, card == CPU bitwise
    (state, series, moments, extras): ensemble (bf16, f32), tempering
    (with accepted swaps), 3-D
@@ -104,8 +112,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 Every path of phases 4-9 runs with the kernel launch counts set to 0 just
 before and read just after: 2 per sweep for the form the path runs, 0 for
 the other forms and for the scenarios that run no kernel (the serving
-plane, the cluster/Potts meshes, Algorithm 1, rbg and every LM family among
-them).
+plane, the cluster/Potts meshes, Algorithm 1, rbg, every LM family and the
+LM sharding engine among them).
 
 It prints one JSON line of kernel records, then the card line, then the
 contract line ``{"ok": true, "device": {...}}`` last. Without a CUDA device,
@@ -1707,7 +1715,7 @@ def _serve(label: str, cfg, params, seq: int, n_decode: int = 32,
     return out
 
 
-def phase_lm_full() -> None:
+def phase_lm_full() -> dict:
     """``repro_torch.launch.train`` at the published qwen3-0.6b (28 layers,
     d_model 1024, 16/8 heads of 128, d_ff 3072, vocab 151936, already a
     multiple of the 128 it is padded to, qk_norm, SwiGLU, bf16), seq 4096,
@@ -1716,7 +1724,9 @@ def phase_lm_full() -> None:
     of each step, model FLOPs as a share of the bf16 peak; the device time
     of one microbatch by kernel (``torch.profiler``) and attention's share
     of a step; then prefill 1 x 4096 (max_len 4128) and 32 greedy decode
-    steps, and the kernels a decode token launches."""
+    steps, and the kernels a decode token launches. Returns the run's
+    losses, grad norms, median step seconds and peak bytes (the twin of
+    :func:`phase_lm_sharded`)."""
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import synthetic as syn
@@ -1743,6 +1753,8 @@ def phase_lm_full() -> None:
         raise AssertionError(f"not the published qwen3-0.6b: {shape}")
     step_s = _train_report(f"LM full {LM_ARCH}", cfg, trainer, res, wall,
                            peak, LM_BATCH, LM_SEQ, LM_MICRO)
+    twin = {"losses": res["losses"], "grad_norms": res["grad_norms"],
+            "step_s": step_s, "peak": peak}
     # where a step's device time goes: one microbatch's forward and
     # backward under the profiler (kernels only), and the attention of one
     # layer and microbatch alone (CUDA events)
@@ -1772,6 +1784,146 @@ def phase_lm_full() -> None:
     _serve("LM full", cfg, params, LM_SEQ)
     del params
     _free()
+    return twin
+
+
+def phase_lm_sharded(twin: dict) -> None:
+    """The sharding engine on the card (no kernel): ``launch.train --mesh
+    1,1`` at phase 4c's published qwen3-0.6b (seq 4096, batch 8 in 4
+    microbatches, 4 steps, seed 0) on a one-rank NCCL group, through the
+    sharded step (placements, the rank's rows, gathers and all-reduces
+    that one rank makes identities). Its losses and grad norms are the
+    unsharded run's, bitwise; ms a step and peak memory beside the twin.
+    Then ``psum_compressed`` over the group of one microbatch's gradient
+    tree == the quantize / dequantize round trip, bitwise, timed."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import synthetic as syn
+    from repro_torch.distributed import compression as C
+    from repro_torch.kernels import checkerboard as kern
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import train_step as TS
+    card = card_line()
+    kern.reset_launches()
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    init_group()
+    argv = ["--arch", LM_ARCH, "--scale", "1.0", "--seq", str(LM_SEQ),
+            "--batch", str(LM_BATCH), "--microbatches", str(LM_MICRO),
+            "--steps", str(LM_STEPS), "--mesh", "1,1", "--seed", "0"]
+    t0 = time.perf_counter()
+    run = launch_train.train(launch_train.parse_args(argv), log_fn=log)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    cfg, trainer, res = run["cfg"], run["trainer"], run["result"]
+    if (res["losses"], res["grad_norms"]) != (twin["losses"],
+                                             twin["grad_norms"]):
+        raise AssertionError(
+            f"LM sharded: --mesh 1,1 losses {res['losses']} grad norms "
+            f"{res['grad_norms']} differ from the unsharded run's "
+            f"{twin['losses']} {twin['grad_norms']}")
+    step_s = _train_report(f"LM sharded {LM_ARCH} --mesh 1,1", cfg, trainer,
+                           res, wall, peak, LM_BATCH, LM_SEQ, LM_MICRO)
+    log(f"LM sharded --mesh 1,1 ({card}): losses and grad norms of 4 steps "
+        f"== the unsharded run's, bitwise ({res['grad_norms']}); "
+        f"{step_s * 1e3:.1f} ms a step, peak {peak / 2**30:.2f} GiB; the "
+        f"unsharded twin {twin['step_s'] * 1e3:.1f} ms, "
+        f"{twin['peak'] / 2**30:.2f} GiB")
+    # one microbatch's gradient tree (bf16, the parameters' dtype)
+    params = trainer.state["params"]
+    del trainer, run
+    mb = syn.device_batch(LM_STEPS, ShapeConfig(
+        "p", seq_len=LM_SEQ, global_batch=LM_BATCH // LM_MICRO,
+        kind="train"), cfg, "cuda")
+    _, grads = TS.value_and_grad(cfg)(params, mb)
+    del params, mb
+    grid = mesh_lib.make_grid((1, 1, 1), ("pod", "data", "model"), "cuda")
+    mesh_lib.reset_counters()
+    summed = C.psum_compressed(grads, grid, None)
+    reduces = mesh_lib.counters["all_reduce"]
+    want = C.decompress_tree(C.compress_tree(grads))
+    leaves = tree.leaves(grads)
+    for got, ref, g in zip(tree.leaves(summed), tree.leaves(want), leaves):
+        if not torch.equal(got, ref.to(g.dtype)):
+            raise AssertionError("LM sharded: psum_compressed over one rank "
+                                 "differs from the quantize round trip")
+    if reduces != 2 * len(leaves):
+        raise AssertionError(f"LM sharded: {reduces} all-reduces for "
+                             f"{len(leaves)} leaves (want a pmax and a psum "
+                             "each)")
+    ms = time_ms(lambda: C.psum_compressed(grads, grid, None), reps=5,
+                 warmup=1)
+    nbytes = sum(g.numel() * g.element_size() for g in leaves)
+    log(f"LM sharded psum_compressed ({card}): {len(leaves)} leaves, "
+        f"{nbytes / 1e9:.3f} GB of bf16 gradients, == dequantize(quantize) "
+        f"bitwise, {reduces} NCCL all-reduces (a pmax and an int32 psum a "
+        f"leaf); {ms:.3f} ms a call (one rank: quantizing, no wire)")
+    del grads, summed, want
+    dist.destroy_process_group()
+    _no_launches("LM sharded")
+    _free()
+
+
+def _moe_ep_one_rank(cfg, pm) -> None:
+    """kimi's published MoE layer (phase 4d's) under the sharding engine on
+    a one-rank NCCL grid: at prefill 1 x 4096 (T >= 2E) ``moe_forward``
+    takes the expert-parallel form, == the unsharded ``moe_forward``
+    bitwise; then one rank's share of the production 16-way model axis,
+    ``_dispatch_combine`` over 24 of the 384 experts (capacity from the
+    4096 local tokens), against its byte bound."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import moe
+    card = card_line()
+    init_group()
+    grid = mesh_lib.make_grid((1, 1), ("data", "model"), "cuda")
+    x = torch.randn(1, LM_SEQ, cfg.d_model, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(5)
+                    ).bfloat16()
+    calls = []
+    ep = moe.moe_forward_ep
+
+    def counting(*args, **kw):
+        calls.append(1)
+        return ep(*args, **kw)
+
+    with torch.no_grad():
+        y, aux = moe.moe_forward(pm, cfg, x)
+        moe.moe_forward_ep = counting
+        try:
+            with SH.activation_sharding(grid, SH.rules_for(cfg)):
+                y_ep, aux_ep = moe.moe_forward(pm, cfg, x)
+        finally:
+            moe.moe_forward_ep = ep
+    if len(calls) != 1 or not (torch.equal(y, y_ep)
+                               and torch.equal(aux, aux_ep)):
+        raise AssertionError(f"MoE EP one rank: {len(calls)} EP calls; "
+                             "y or aux differ from moe_forward")
+    e_loc = cfg.n_experts // 16
+    xf = x.reshape(-1, cfg.d_model)
+    logits = xf.float() @ pm["router"]
+    cap = moe.capacity(cfg, xf.shape[0])
+    w = {k: pm[k][:e_loc] for k in ("wi", "wg", "wo")}
+    with torch.no_grad():
+        ms = time_ms(lambda: moe._dispatch_combine(
+            cfg, xf, logits, w["wi"], w["wg"], w["wo"], 0, e_loc, cap),
+            reps=10, warmup=2)
+    wbytes = sum(a.numel() * a.element_size() for a in w.values())
+    io = 2 * xf.numel() * xf.element_size() + logits.numel() * 4
+    log(f"MoE EP one rank ({card}): prefill 1 x {LM_SEQ} through "
+        f"moe_forward_ep == moe_forward, bitwise; one rank of the 16-way "
+        f"model axis, {e_loc} of {cfg.n_experts} experts, capacity {cap}: "
+        f"{ms:.3f} ms; bound {wbytes / HBM_BYTES_PER_S * 1e3:.3f} ms (its "
+        f"{wbytes / 1e9:.2f} GB of expert weights at 3.35 TB/s; "
+        f"{(wbytes + io) / HBM_BYTES_PER_S * 1e3:.3f} with the tokens, "
+        f"logits and output), {wbytes / HBM_BYTES_PER_S * 1e3 / ms:.1%} "
+        "of it")
+    dist.destroy_process_group()
 
 
 def phase_ssm_full() -> None:
@@ -2027,6 +2179,7 @@ def phase_moe_full() -> None:
                 f"slots dropped beyond capacity ({(n_slots - k_slots) / n_slots:.2%}); "
                 f"the layer {ms:.1f} ms of the prefill's "
                 f"{served['prefill_ms']:.1f} ms ({ms / served['prefill_ms']:.1%})")
+    _moe_ep_one_rank(cfg, pm)
     _no_launches("MoE full")
     del params, pm, x
     _free()
@@ -2235,11 +2388,18 @@ def main() -> int:
     phase_main_path(launches)
     phase_small_and_chain()
     t_lm = time.perf_counter()
+    twin = {}
     for phase in (phase_algorithm1, phase_rbg, phase_lm_small,
-                  phase_lm_scores, phase_lm_full, phase_lm_small_families,
-                  phase_ssm_full, phase_rec_full, phase_moe_full):
+                  phase_lm_scores, phase_lm_full, phase_lm_sharded,
+                  phase_lm_small_families, phase_ssm_full, phase_rec_full,
+                  phase_moe_full):
         t0 = time.perf_counter()
-        phase()
+        if phase is phase_lm_full:
+            twin = phase()
+        elif phase is phase_lm_sharded:
+            phase(twin)
+        else:
+            phase()
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
     log(f"Algorithm 1, rbg and LM phases: {time.perf_counter() - t_lm:.1f} s")
     t_new = time.perf_counter()

@@ -20,7 +20,8 @@ The JAX package's arrays reach this module as numpy arrays
 * the decoder LM's parameter and optimizer-state trees (nested dicts and
   lists of numpy arrays, ``jax.tree.map(np.asarray, tree)``) become the
   same trees of tensors (:func:`lm_params_from_jax`,
-  :func:`opt_state_from_jax`).
+  :func:`opt_state_from_jax`), or, given ``blocks=(grid, placements)``,
+  as this rank's blocks of them.
 """
 from __future__ import annotations
 
@@ -33,8 +34,9 @@ def _is_bfloat16(a: np.ndarray) -> bool:
 
 
 def to_torch(a, device="cpu") -> torch.Tensor:
-    """A numpy lattice (float32, bfloat16, int or bool) as a torch tensor."""
-    a = np.ascontiguousarray(a)
+    """A numpy lattice (float32, bfloat16, int or bool) as a torch tensor
+    of the same shape (0-d included)."""
+    a = np.ascontiguousarray(a).reshape(np.shape(a))
     if _is_bfloat16(a):
         t = torch.from_numpy(a.view(np.int16).copy())
         return t.view(torch.bfloat16).to(device)
@@ -98,10 +100,18 @@ def _tree_to_torch(tree, device):
     return to_torch(np.asarray(tree), device)
 
 
-def lm_params_from_jax(params, cfg, device="cpu") -> dict:
+def _blocks(full, blocks):
+    if blocks is None:
+        return full
+    from repro_torch.distributed import sharding
+    return sharding.local_blocks(blocks[0], full, blocks[1])
+
+
+def lm_params_from_jax(params, cfg, device="cpu", blocks=None) -> dict:
     """The reference's LM parameter tree (numpy leaves) as the port's,
     checked leaf by leaf against the port's own tree for ``cfg`` (paths,
-    shapes and dtypes)."""
+    shapes and dtypes); with ``blocks=(grid, placements)`` this rank's
+    blocks of it."""
     from repro_torch import tree
     from repro_torch.models import transformer
     out = _tree_to_torch(params, device)
@@ -111,11 +121,11 @@ def lm_params_from_jax(params, cfg, device="cpu") -> dict:
             [(p, tuple(a.shape), a.dtype) for p, a in want]:
         raise ValueError(f"the parameter tree does not match {cfg.name}'s: "
                          f"{[(p, tuple(a.shape)) for p, a in got]}")
-    return out
+    return _blocks(out, blocks)
 
 
-def opt_state_from_jax(state, device="cpu") -> dict:
+def opt_state_from_jax(state, device="cpu", blocks=None) -> dict:
     """The reference's optimizer state (numpy leaves; int32 ``count``) as
-    the port's."""
-    return _tree_to_torch(state, device)
+    the port's (this rank's blocks with ``blocks=(grid, placements)``)."""
+    return _blocks(_tree_to_torch(state, device), blocks)
 

@@ -1,7 +1,7 @@
-"""Cluster-update plane: Swendsen-Wang / Wolff on one device.
+"""Cluster-update plane: Swendsen-Wang / Wolff.
 
-The port of ``repro.cluster`` (the sharded ``mesh`` module is not ported
-yet): FK bonds with u24 thresholds and counter-based bond bits
+The port of ``repro.cluster`` (its sharded form is :mod:`~repro_torch.
+cluster.mesh`): FK bonds with u24 thresholds and counter-based bond bits
 (:mod:`~repro_torch.cluster.bonds`), canonical labels by neighbour-min and
 pointer jumps (:mod:`~repro_torch.cluster.label`), and gather-free
 per-cluster coins (:mod:`~repro_torch.cluster.sweep`).

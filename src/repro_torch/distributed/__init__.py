@@ -1,2 +1,3 @@
-"""The decomposed lattice over ``torch.distributed``: halo exchange, the
-generic loop, and the 2-D and 3-D Ising bindings."""
+"""Over ``torch.distributed``: the decomposed lattice (halo exchange, the
+generic loop, the 2-D and 3-D Ising bindings), the LM's sharding rules and
+int8 gradient compression."""

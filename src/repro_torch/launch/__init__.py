@@ -1,1 +1,1 @@
-"""Process grids and the simulation launcher."""
+"""Process grids and the simulation, serving and training launchers."""

@@ -9,8 +9,13 @@ its blocks live on, and whether a process group carries its collectives:
 
 * :meth:`DeviceGrid.axis_index` flattens a tuple of axes as
   ``lax.axis_index`` does (the first axis slowest);
-* :meth:`DeviceGrid.psum` is ``lax.psum`` over the whole grid: an
-  ``all_reduce(SUM)`` over the group, the identity with no group;
+* :meth:`DeviceGrid.psum` / :meth:`DeviceGrid.pmax` are ``lax.psum`` /
+  ``lax.pmax``: over the whole grid (an ``all_reduce`` over the group),
+  or over the rings of some of its axes (one ``dist.new_group`` per
+  ring, every ring created on every rank in the same order the first
+  time those axes reduce); the identity with no group or a one-rank ring;
+* :meth:`DeviceGrid.all_gather` concatenates the blocks of a ring of
+  ``axes`` in ``axis_index`` order;
 * :meth:`DeviceGrid.send` is ``lax.ppermute`` along one ring of the grid:
   rank ``k`` of the ring receives the plane of rank ``k - delta``
   (``batch_isend_irecv``), the identity when the ring has one rank;
@@ -24,6 +29,10 @@ its world size must equal the grid's shard count. ``counters`` counts the
 collectives a grid issued (and the cluster label merge's iterations).
 :func:`run_ranks` starts a function on N gloo ranks of CPU tensors (the
 launcher's ``--devices N`` and the tests).
+
+A :class:`Layout` is a grid's shape and axis names alone, with no ranks:
+the sharding rules resolve on it as on a grid
+(:func:`production_layout`: the reference's 16 x 16 and 2 x 16 x 16).
 """
 from __future__ import annotations
 
@@ -39,6 +48,10 @@ import torch.distributed as dist
 # collectives a grid issued, and iterations of the cross-rank label merge
 # (repro_torch.cluster.mesh), one all-reduce of a changed flag each
 counters = {"all_reduce": 0, "send": 0, "gather": 0, "label_merge": 0}
+
+# the reference's production meshes (``repro.launch.mesh``)
+_PRODUCTION = {False: ((16, 16), ("data", "model")),
+               True: ((2, 16, 16), ("pod", "data", "model"))}
 
 
 def reset_counters() -> None:
@@ -70,6 +83,25 @@ def resolve_device(device=None) -> torch.device:
 
 
 @dataclasses.dataclass(frozen=True)
+class Layout:
+    """A grid's shape and axis names, with no ranks (what the sharding
+    rules read)."""
+    shape: tuple
+    axes: tuple
+
+
+def production_layout(multi_pod: bool = False) -> Layout:
+    """Single pod: (16, 16), axes (data, model); multi-pod: (2, 16, 16),
+    axes (pod, data, model)."""
+    return Layout(*_PRODUCTION[multi_pod])
+
+
+def data_axes(grid) -> tuple:
+    """The batch-parallel axes of a grid or layout (pod folds into data)."""
+    return tuple(a for a in ("pod", "data") if a in grid.axes)
+
+
+@dataclasses.dataclass(frozen=True)
 class DeviceGrid:
     """This rank's place on a process grid of ``shape`` named ``axes``."""
     shape: tuple
@@ -77,6 +109,9 @@ class DeviceGrid:
     rank: int
     device: torch.device
     distributed: bool = False   # a process group carries the collectives
+    # axes -> (this rank's ring group, the ring's ranks), made on first use
+    _rings: dict = dataclasses.field(default_factory=dict, repr=False,
+                                     compare=False, hash=False)
 
     @property
     def size(self) -> int:
@@ -127,15 +162,60 @@ class DeviceGrid:
 
     # -- collectives --------------------------------------------------------
 
-    def psum(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum of ``x`` (a scalar or a small tensor) over every rank
-        (``lax.psum`` over the grid)."""
-        if not self.distributed:
+    def _ring(self, axes) -> tuple:
+        """(the process group of this rank's ring of ``axes``, its ranks in
+        ``axis_index`` order). The first call for ``axes`` creates every
+        ring's group, on every rank in the same order (``dist.new_group``
+        wants all ranks at each call)."""
+        axes = as_axes(axes)
+        if axes not in self._rings:
+            rings = {}
+            for r in range(self.size):
+                c = self.coords_of(r)
+                rest = tuple(v for i, v in enumerate(c)
+                             if i not in self._dims(axes))
+                rings.setdefault(rest, []).append(
+                    (self.axis_index(axes, c), r))
+            for ring in rings.values():
+                ranks = [r for _, r in sorted(ring)]
+                group = dist.new_group(sorted(ranks))
+                if self.rank in ranks:
+                    self._rings[axes] = (group, ranks)
+        return self._rings[axes]
+
+    def _reduce(self, x: torch.Tensor, axes, op) -> torch.Tensor:
+        if not self.distributed or (axes is not None
+                                    and self.axis_size(axes) == 1):
             return x
+        group = None if axes is None else self._ring(axes)[0]
         buf = x.detach().reshape(-1).clone()
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+        dist.all_reduce(buf, op=op, group=group)
         counters["all_reduce"] += 1
         return buf.reshape(x.shape)
+
+    def psum(self, x: torch.Tensor, axes=None) -> torch.Tensor:
+        """Sum of ``x`` over every rank (``lax.psum`` over the grid), or
+        over the ring of ``axes`` through this rank."""
+        return self._reduce(x, axes, dist.ReduceOp.SUM)
+
+    def pmax(self, x: torch.Tensor, axes=None) -> torch.Tensor:
+        """Elementwise maximum of ``x`` over the grid or the ring of
+        ``axes`` (``lax.pmax``)."""
+        return self._reduce(x, axes, dist.ReduceOp.MAX)
+
+    def all_gather(self, x: torch.Tensor, axes, dim: int = 0
+                   ) -> torch.Tensor:
+        """The blocks of the ring of ``axes`` through this rank,
+        concatenated along ``dim`` in ``axis_index`` order."""
+        if not self.distributed or self.axis_size(axes) == 1:
+            return x
+        group, ranks = self._ring(axes)
+        x = x.detach().contiguous()
+        blocks = [torch.empty_like(x) for _ in ranks]
+        dist.all_gather(blocks, x, group=group)   # in group (sorted) order
+        counters["gather"] += 1
+        by_rank = dict(zip(sorted(ranks), blocks))
+        return torch.cat([by_rank[r] for r in ranks], dim)
 
     def send(self, plane: torch.Tensor, axes, delta: int) -> torch.Tensor:
         """Shift ``plane`` ``delta`` hops along the ring of ``axes``: this

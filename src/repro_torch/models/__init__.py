@@ -1,3 +1,3 @@
-"""The decoder LM: layers, the RG-LRU, Mamba2 and MoE blocks, the
-transformer and the model API (the port of ``repro.models`` on one
-device)."""
+"""The decoder LM: layers, the RG-LRU, Mamba2 and MoE blocks (expert
+parallel on a process grid), the transformer and the model API with its
+logical-dim spec trees (the port of ``repro.models``)."""

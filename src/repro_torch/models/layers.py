@@ -5,8 +5,9 @@ caches, MLPs, embeddings.
 The port of ``repro.models.layers``. Parameters are plain trees (nested
 dicts of tensors) with the reference's names and shapes; every ``init_*``
 takes an explicit ``torch.Generator`` and device and draws the same
-distributions as the reference (not the same numbers). The logical-axis
-specs of the reference wait for the sharding slice.
+distributions as the reference (not the same numbers). Beside each
+``init_*`` a ``*_specs(cfg)`` gives the reference's logical-axis tree for
+the same parameters (``distributed.sharding`` resolves it to placements).
 
 Products whose operands are bf16 but whose result the reference takes in
 f32 (``preferred_element_type=jnp.float32``: the attention scores and
@@ -395,6 +396,23 @@ def init_attention(gen, cfg, device, lead=()) -> dict:
     return params
 
 
+def attention_specs(cfg) -> dict:
+    specs = {
+        "wq": ("embed", "heads", "head"),
+        "wk": ("embed", "kv_heads", "head"),
+        "wv": ("embed", "kv_heads", "head"),
+        "wo": ("heads", "head", "embed"),
+    }
+    if cfg.qk_norm:
+        specs["q_norm"] = ("head",)
+        specs["k_norm"] = ("head",)
+    if cfg.attn_bias:
+        specs["bq"] = ("heads", "head")
+        specs["bk"] = ("kv_heads", "head")
+        specs["bv"] = ("kv_heads", "head")
+    return specs
+
+
 def _proj(x, w):
     """einsum("bsd,dhk->bshk") as one matmul."""
     d, h, k = w.shape
@@ -487,6 +505,13 @@ def init_mlp(gen, cfg, device, d_ff: int = 0, lead=()) -> dict:
     return params
 
 
+def mlp_specs(cfg) -> dict:
+    specs = {"wi": ("embed", "ffn"), "wo": ("ffn", "embed")}
+    if cfg.activation in ("swiglu", "geglu"):
+        specs["wg"] = ("embed", "ffn")
+    return specs
+
+
 def mlp_forward(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     act = cfg.activation
     hi = x @ p["wi"]
@@ -516,6 +541,11 @@ def init_embeddings(gen, cfg, device) -> dict:
     return {"tok": _normal(gen, (n_emb, v, d), dt, 1.0, device),
             "out": dense_init(gen, (d, n_emb * v), dt, device),
             "ln_f": _ones((d,), dt, device)}
+
+
+def embeddings_specs(cfg) -> dict:
+    return {"tok": (None, "vocab", "embed"), "out": ("embed", "vocab"),
+            "ln_f": ("embed",)}
 
 
 def embed_tokens(p: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:

@@ -47,6 +47,19 @@ def init_mamba2(gen, cfg, device, lead=()) -> dict:
     }
 
 
+def mamba2_specs(cfg) -> dict:
+    return {
+        "in_proj": ("embed", "ssm_inner"),
+        "conv_w": (None, "ssm_inner"),
+        "conv_b": ("ssm_inner",),
+        "a_log": ("ssm_heads",),
+        "d_skip": ("ssm_heads",),
+        "dt_bias": ("ssm_heads",),
+        "norm": ("ssm_inner",),
+        "out_proj": ("ssm_inner", "embed"),
+    }
+
+
 def _split_proj(cfg, zxbcdt):
     d_inner, _, _ = dims(cfg)
     ns = cfg.ssm_state
@@ -216,6 +229,11 @@ def init_mamba2_state(cfg, batch: int, device="cpu") -> dict:
         "ssm": torch.zeros((batch, nheads, cfg.ssm_head_dim, cfg.ssm_state),
                            dtype=torch.float32, device=device),
     }
+
+
+def mamba2_state_specs(cfg) -> dict:
+    return {"conv": ("batch", None, "ssm_inner"),
+            "ssm": ("batch", "ssm_heads", None, "state")}
 
 
 def conv_step(state_conv, new, w, bias):

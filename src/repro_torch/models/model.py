@@ -1,6 +1,7 @@
-"""Public model API: the loss and the step functions (the port of
-``repro.models.model``). The abstract input specs and logical dims of the
-dry-run wait for the dry-run slice."""
+"""Public model API: the loss, the step functions, and the abstract input
+batch of every (architecture x shape) cell with its logical dims (the
+port of ``repro.models.model``). Abstract tensors live on the ``meta``
+device: shapes and dtypes, no storage."""
 from __future__ import annotations
 
 import functools
@@ -8,6 +9,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core.lattice import torch_dtype
 from repro_torch.models import transformer
 
 
@@ -36,6 +38,71 @@ def loss_fn(params: dict, cfg, batch: dict) -> torch.Tensor:
                   for i in range(cfg.n_codebooks)]
         return torch.mean(torch.stack(losses))
     return cross_entropy(logits, labels, cfg.vocab_size)
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta tensors, no allocation) + logical dims
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg, shape) -> dict:
+    """Abstract input batch for one cell (``shape``: a ShapeConfig)."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    tok_shape = (b, s, cfg.n_codebooks) if cfg.n_codebooks else (b, s)
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": _meta(tok_shape, i32)}
+        if shape.kind == "train":
+            batch["labels"] = _meta(tok_shape, i32)
+        if cfg.family == "vlm":
+            batch["vision_embeds"] = _meta((b, s, cfg.d_model),
+                                           torch_dtype(cfg.dtype))
+            batch["vision_mask"] = _meta((b, s), torch.bool)
+            batch["positions"] = _meta((b, s, 3), i32)
+        return batch
+    if shape.kind == "decode":
+        tok1 = (b, 1, cfg.n_codebooks) if cfg.n_codebooks else (b, 1)
+        batch = {"tokens": _meta(tok1, i32), "pos": _meta((), i32)}
+        if cfg.family == "vlm":
+            batch["positions"] = _meta((b, 1, 3), i32)
+        return batch
+    raise ValueError(shape.kind)
+
+
+def batch_logical_dims(cfg, shape) -> dict:
+    """Logical axes for each input tensor (resolved by the sharding
+    rules)."""
+    tok = ("batch", "seq", None) if cfg.n_codebooks else ("batch", "seq")
+    if shape.kind in ("train", "prefill"):
+        dims = {"tokens": tok}
+        if shape.kind == "train":
+            dims["labels"] = tok
+        if cfg.family == "vlm":
+            dims["vision_embeds"] = ("batch", "seq", "embed")
+            dims["vision_mask"] = ("batch", "seq")
+            dims["positions"] = ("batch", "seq", None)
+        return dims
+    tok1 = ("batch", None, None) if cfg.n_codebooks else ("batch", None)
+    dims = {"tokens": tok1, "pos": None}
+    if cfg.family == "vlm":
+        dims["positions"] = ("batch", None, None)
+    return dims
+
+
+def decode_state_specs(cfg, shape):
+    """(meta decode-state tree, logical-dims tree) for the decode cache."""
+    states = transformer.init_states(cfg, shape.global_batch, shape.seq_len,
+                                     device="meta")
+    return states, transformer.state_specs(cfg)
+
+
+# ---------------------------------------------------------------------------
+# step functions
+# ---------------------------------------------------------------------------
 
 
 def make_train_loss(cfg) -> Callable:

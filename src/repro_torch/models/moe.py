@@ -1,5 +1,5 @@
-"""Token-dropping Mixture-of-Experts: the port of ``repro.models.moe`` on
-one device.
+"""Token-dropping Mixture-of-Experts with expert parallelism: the port of
+``repro.models.moe``.
 
 Sort-based dispatch (no [T, E, cap] one-hots): the T*k routed slots are
 sorted by expert (stable), positioned within their expert group by a
@@ -14,9 +14,12 @@ is sliced off), and the combine sums each token's k contributions in a
 fixed order (the reference's: ascending expert) instead of a scatter-add,
 so neither the forward nor the backward needs atomics whose order varies.
 
-The expert-parallel form (``moe_forward_ep``, experts sharded over the
-model axis, one all-reduce per layer) comes with the sharding slice
-(ROADMAP A19.4), which calls :func:`_dispatch_combine` per expert range.
+Inside ``distributed.sharding.activation_sharding`` (the tokens are this
+rank's rows over the batch axes) the reference's two grid forms apply:
+:func:`moe_forward_ep` dispatches the local tokens to this rank's block of
+experts over "model" and sums the partial outputs with one all-reduce;
+:func:`moe_forward_gspmd` routes the whole microbatch, as GSPMD computes
+it, gathering the other ranks' tokens and keeping its own rows.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.lattice import torch_dtype
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as nn
 
 
@@ -46,6 +50,19 @@ def init_moe(gen, cfg, device, lead=()) -> dict:
                                        d_ff=ff * cfg.n_shared_experts,
                                        lead=lead)
     return params
+
+
+def moe_specs(cfg) -> dict:
+    specs = {
+        "router": ("embed", None),
+        "wi": ("experts", "embed", "ffn"),
+        "wo": ("experts", "ffn", "embed"),
+    }
+    if cfg.activation in ("swiglu", "geglu"):
+        specs["wg"] = ("experts", "embed", "ffn")
+    if cfg.n_shared_experts:
+        specs["shared"] = nn.mlp_specs(cfg)
+    return specs
 
 
 def _expert_act(cfg, ebuf, p):
@@ -149,25 +166,107 @@ def _dispatch_combine(cfg, xf, logits, wi, wg, wo, e_lo: int, e_local: int,
     return y, r["counts"]
 
 
+def moe_forward_ep(p: dict, cfg, x: torch.Tensor, grid):
+    """Expert-parallel MoE (the reference's shard_map form). ``x`` [b, s,
+    d] is this rank's rows over the batch axes of the activation context,
+    held whole along "model"; the rank dispatches them to its block of
+    n_experts / model experts (capacity from the local tokens) and the
+    partial outputs are summed over "model". When the experts do not
+    divide the model axis every rank runs all of them (no sum). Returns
+    (y, aux), aux averaged over the batch axes."""
+    b, s, d = x.shape
+    batch_axes = SH.current_batch_axes()
+    e_par = grid.axis_size("model") if "model" in grid.axes else 1
+    if cfg.n_experts % e_par:
+        e_par = 1  # indivisible: run experts replicated (local dispatch)
+    e_local = cfg.n_experts // e_par
+    t = b * s
+    cap = capacity(cfg, t)
+    xf = x.reshape(t, d)
+    logits = xf.float() @ p["router"]
+    wg = p.get("wg")
+    e_lo = 0
+    if e_par > 1:
+        # the dispatch's tokens and logits are replicated over "model" and
+        # each rank's share of their cotangents partial; the weights are
+        # this rank's experts
+        e_lo = grid.axis_index("model") * e_local
+        xd = SH.replicated_over(xf, grid, "model")
+        ld = SH.replicated_over(logits, grid, "model")
+        wi, wo = (SH.block_over(p[k], grid, "model") for k in ("wi", "wo"))
+        wg = None if wg is None else SH.block_over(wg, grid, "model")
+    else:
+        xd, ld, wi, wo = xf, logits, p["wi"], p["wo"]
+    y, counts = _dispatch_combine(cfg, xd, ld, wi, wg, wo, e_lo, e_local,
+                                  cap)
+    if e_par > 1:
+        y = SH.sum_over(y, grid, "model")
+    # Switch aux loss: the same on every model rank (same tokens, same
+    # router), different per batch shard -> averaged over the batch axes
+    probs = torch.softmax(logits, dim=-1)
+    frac = counts.float() / (t * cfg.experts_per_token)
+    aux = cfg.n_experts * torch.sum(frac * probs.mean(0))
+    n = grid.axis_size(batch_axes)
+    if n > 1:   # lax.pmean: each rank's cotangent to its own term, / n
+        aux = SH.sum_over(aux, grid, batch_axes) / n
+    y = y.reshape(x.shape)
+    if cfg.n_shared_experts:
+        y = y + nn.mlp_forward(p["shared"], cfg, xf).reshape(x.shape)
+    return y, aux
+
+
 def moe_forward(p: dict, cfg, x: torch.Tensor):
-    """x: [B, S, d] -> (y, aux_load_balance_loss). One device: the
-    reference's GSPMD path (it takes it whenever no mesh with a "model"
-    axis is active)."""
+    """x: [B, S, d] -> (y, aux_load_balance_loss).
+
+    Expert-parallel (:func:`moe_forward_ep`) when ``cfg.moe_impl == "ep"``
+    inside an activation context whose grid has a model axis, and the
+    microbatch holds at least 2 tokens an expert (EP pays one all-reduce
+    and a dispatch per rank a layer: a loss for single-token decode);
+    otherwise :func:`moe_forward_gspmd`.
+    """
+    grid, _ = SH.current_mesh_and_rules()
+    if cfg.moe_impl == "ep" and grid is not None and "model" in grid.axes:
+        n_tokens = x.shape[0] * x.shape[1] \
+            * grid.axis_size(SH.current_batch_axes())
+        if n_tokens >= 2 * cfg.n_experts:
+            return moe_forward_ep(p, cfg, x, grid)
     return moe_forward_gspmd(p, cfg, x)
 
 
+def _whole_microbatch(x: torch.Tensor):
+    """Inside an activation context: (the microbatch's tokens [B*s, d]
+    gathered over the batch axes, this rank's rows of them) -- the other
+    ranks' rows as constants, so gradients reach this rank's tokens only.
+    Outside one: (x's tokens, all rows)."""
+    grid, _ = SH.current_mesh_and_rules()
+    axes = SH.current_batch_axes()
+    xf = x.reshape(-1, x.shape[-1])
+    if grid is None or grid.axis_size(axes) == 1:
+        return xf, slice(None)
+    whole = grid.all_gather(xf, axes, 0)
+    lo = grid.axis_index(axes) * xf.shape[0]
+    rows = slice(lo, lo + xf.shape[0])
+    return torch.cat([whole[:lo], xf, whole[rows.stop:]]), rows
+
+
 def moe_forward_gspmd(p: dict, cfg, x: torch.Tensor):
-    """The sort-based dispatch over all experts, plus the shared expert
-    and the Switch-style load-balance aux loss."""
+    """The sort-based dispatch over all experts and the whole microbatch
+    (global capacity and positions), plus the shared expert and the
+    Switch-style load-balance aux loss."""
     b, s, d = x.shape
-    t = b * s
     e = cfg.n_experts
-    xf = x.reshape(t, d)
+    xf, rows = _whole_microbatch(x)
+    t = xf.shape[0]
     logits = xf.float() @ p["router"]                          # [T, E]
+    if rows != slice(None):
+        # the router's gradient from this rank's tokens only
+        logits = torch.cat([logits[:rows.start].detach(), logits[rows],
+                            logits[rows.stop:].detach()])
     y, counts = _dispatch_combine(cfg, xf, logits, p["wi"], p.get("wg"),
                                   p["wo"], 0, e, capacity(cfg, t))
+    y, xl = y[rows], xf[rows]
     if cfg.n_shared_experts:
-        y = y + nn.mlp_forward(p["shared"], cfg, xf)
+        y = y + nn.mlp_forward(p["shared"], cfg, xl)
     # load-balance aux (Switch-style): E * sum_e f_e * p_e
     probs = torch.softmax(logits, dim=-1)
     frac = counts.float() / (t * cfg.experts_per_token)

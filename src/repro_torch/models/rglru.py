@@ -45,6 +45,16 @@ def init_rglru(gen, cfg, device, lead=()) -> dict:
     }
 
 
+def rglru_specs(cfg) -> dict:
+    return {
+        "wx": ("embed", "rnn"), "wy": ("embed", "rnn"),
+        "conv_w": (None, "rnn"), "conv_b": ("rnn",),
+        "w_r": ("embed", "rnn"), "b_r": ("rnn",),
+        "w_i": ("embed", "rnn"), "b_i": ("rnn",),
+        "lam": ("rnn",), "out": ("rnn", "embed"),
+    }
+
+
 def _gates(p, u):
     """Returns (a, gated input b) in f32 for the recurrence."""
     uf = u.float()
@@ -137,6 +147,10 @@ def init_rglru_state(cfg, batch: int, device="cpu") -> dict:
                             dtype=torch_dtype(cfg.dtype), device=device),
         "h": torch.zeros((batch, d_rnn), dtype=torch.float32, device=device),
     }
+
+
+def rglru_state_specs(cfg) -> dict:
+    return {"conv": ("batch", None, "rnn"), "h": ("batch", "rnn")}
 
 
 def rglru_decode(p: dict, cfg, state: dict, x: torch.Tensor):

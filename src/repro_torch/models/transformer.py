@@ -30,6 +30,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.core.lattice import torch_dtype
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.sharding import shard_hint
 from repro_torch.models import layers as nn
 from repro_torch.models import mamba2, moe, rglru
 
@@ -75,6 +77,33 @@ def init_layer(gen, cfg, kind: str, device, lead=()) -> dict:
     return params
 
 
+def layer_specs(cfg, kind: str) -> dict:
+    """The logical dims of :func:`init_layer`'s tree (no leading axis)."""
+    specs = {"ln1": ("embed",)}
+    if kind in ("a", "l"):
+        specs["attn"] = nn.attention_specs(cfg)
+    elif kind == "r":
+        specs["rec"] = rglru.rglru_specs(cfg)
+    elif kind == "s":
+        specs["ssm"] = mamba2.mamba2_specs(cfg)
+    else:
+        raise ValueError(kind)
+    if kind != "s":
+        specs["ln2"] = ("embed",)
+        if cfg.n_experts:
+            specs["moe"] = moe.moe_specs(cfg)
+        else:
+            specs["mlp"] = nn.mlp_specs(cfg)
+    return specs
+
+
+def _stacked_dims(specs):
+    """Every leaf's dims with the leading "layers" dim."""
+    if isinstance(specs, dict):
+        return {k: _stacked_dims(v) for k, v in specs.items()}
+    return ("layers",) + tuple(specs)
+
+
 def _window(cfg, kind: str) -> int:
     return cfg.window if kind == "l" else 0
 
@@ -100,7 +129,8 @@ def apply_layer(p: dict, cfg, kind: str, x, cos, sin):
     else:
         h = mamba2.mamba2_forward(p["ssm"], cfg, h)
     x = x + h
-    return x if kind == "s" else _channel_mix(p, cfg, x)
+    x = x if kind == "s" else _channel_mix(p, cfg, x)
+    return shard_hint(x, ("batch", "seq", "embed"))
 
 
 def apply_layer_prefill(p, cfg, kind, x, cos, sin, max_len: int = 0):
@@ -118,7 +148,8 @@ def apply_layer_prefill(p, cfg, kind, x, cos, sin, max_len: int = 0):
     else:
         h, state = _mamba2_prefill(p["ssm"], cfg, h)
     x = x + h
-    return (x if kind == "s" else _channel_mix(p, cfg, x)), state
+    x = x if kind == "s" else _channel_mix(p, cfg, x)
+    return shard_hint(x, ("batch", "seq", "embed")), state
 
 
 def _conv_tail(raw: torch.Tensor, w: int) -> torch.Tensor:
@@ -172,6 +203,19 @@ def init_layer_state(cfg, kind: str, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
+def layer_state_specs(cfg, kind: str) -> dict:
+    if kind in ("a", "l"):
+        dims = (("batch", "kv_heads", None, "head")
+                if cfg.cache_layout == "bkth"
+                else ("batch", None, "kv_heads", "head"))
+        return {"k": dims, "v": dims}
+    if kind == "r":
+        return rglru.rglru_state_specs(cfg)
+    if kind == "s":
+        return mamba2.mamba2_state_specs(cfg)
+    raise ValueError(kind)
+
+
 # ---------------------------------------------------------------------------
 # whole-model init / apply
 # ---------------------------------------------------------------------------
@@ -191,6 +235,19 @@ def init_model(cfg, generator=None, device="cpu") -> dict:
         layers = [init_layer(generator, cfg, kind, device)
                   for kind in cfg.pattern]
     return {"emb": emb, "layers": layers}
+
+
+def model_specs(cfg) -> dict:
+    """The reference's logical-dim tree of :func:`init_model`'s parameters
+    (its ``init_model(key, cfg)[1]``): stacked leaves lead with "layers",
+    per-layer trees are listed."""
+    check_supported(cfg)
+    emb = nn.embeddings_specs(cfg)
+    if stacked(cfg):
+        return {"emb": emb,
+                "layers": _stacked_dims(layer_specs(cfg, cfg.pattern[0]))}
+    return {"emb": emb,
+            "layers": [layer_specs(cfg, kind) for kind in cfg.pattern]}
 
 
 def _layer_params(params, cfg):
@@ -214,7 +271,7 @@ def _embed_inputs(params, cfg, batch: dict) -> torch.Tensor:
     if "vision_embeds" in batch:   # VLM stub frontend: precomputed patches
         mask = batch["vision_mask"][..., None]
         x = torch.where(mask, batch["vision_embeds"].to(x.dtype), x)
-    return x
+    return shard_hint(x, ("batch", "seq", "embed"))
 
 
 def _positions(batch, b: int, s: int, device):
@@ -233,11 +290,13 @@ def forward(params: dict, cfg, batch: dict) -> torch.Tensor:
     for kind, lp in _layer_params(params, cfg):
         if cfg.remat:
             x = checkpoint(apply_layer, lp, cfg, kind, x, cos, sin,
-                           use_reentrant=False)
+                           use_reentrant=False,
+                           context_fn=SH.checkpoint_contexts)
         else:
             x = apply_layer(lp, cfg, kind, x, cos, sin)
     x = nn.rms_norm(x, params["emb"]["ln_f"], cfg.norm_eps)
-    return nn.unembed(params["emb"], cfg, x)
+    return shard_hint(nn.unembed(params["emb"], cfg, x),
+                      ("batch", "seq", "vocab"))
 
 
 def prefill(params: dict, cfg, batch: dict, max_len: int = 0):
@@ -295,6 +354,14 @@ def init_states(cfg, batch: int, max_len: int, device="cpu"):
                 for name, a in one.items()}
     return [init_layer_state(cfg, k, batch, max_len, device)
             for k in cfg.pattern]
+
+
+def state_specs(cfg):
+    """The logical dims of :func:`init_states`' tree."""
+    check_supported(cfg)
+    if stacked(cfg):
+        return _stacked_dims(layer_state_specs(cfg, cfg.pattern[0]))
+    return [layer_state_specs(cfg, k) for k in cfg.pattern]
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
-"""q-state Potts model plane on one device.
+"""q-state Potts model plane.
 
-The port of ``repro.potts`` (the sharded ``mesh`` module is not ported
-yet): int32 colour states and observables (:mod:`~repro_torch.potts.state`),
+The port of ``repro.potts`` (its sharded form is :mod:`~repro_torch.potts.
+mesh`): int32 colour states and observables (:mod:`~repro_torch.potts.state`),
 checkerboard heat-bath / Metropolis (:mod:`~repro_torch.potts.rules`), FK
 bonds (:mod:`~repro_torch.potts.bonds`) and Swendsen-Wang / Wolff
 (:mod:`~repro_torch.potts.sweep`).

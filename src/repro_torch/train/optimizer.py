@@ -5,8 +5,9 @@ Not ``torch.optim``: the state is a tree beside the parameters with the
 reference's names (``m``, ``v``, ``count``; ``v/{vr, vc}`` for
 Adafactor's factored moments), so a checkpoint of the port and one of the
 reference hold the same leaves. Updates return new trees and compute in
-f32 in the reference's order. The ZeRO-1 state sharding
-(``state_logical_dims``) waits for the sharding slice.
+f32 in the reference's order. :func:`state_logical_dims` gives the
+state's logical dims (ZeRO-1: each moment inherits its parameter's), which
+``distributed.sharding`` resolves to the blocks a rank holds.
 """
 from __future__ import annotations
 
@@ -161,3 +162,18 @@ def init_fn(kind: str) -> Callable:
 
 def update_fn(kind: str) -> Callable:
     return {"adamw": adamw_update, "adafactor": adafactor_update}[kind]
+
+
+def state_logical_dims(kind: str, param_specs, params):
+    """Logical dims for the optimizer state tree (ZeRO-1: same as params;
+    factored stats inherit the matching prefix of the param's dims)."""
+    if kind == "adamw":
+        return {"m": param_specs, "v": param_specs, "count": None}
+    if kind == "adafactor":
+        def one(p, spec):
+            spec = tuple(spec) if spec is not None else (None,) * p.dim()
+            if _factored(p.shape):
+                return {"vr": spec[:-1], "vc": spec[:-2] + spec[-1:]}
+            return {"v": spec}
+        return {"v": tree.map(one, params, param_specs), "count": None}
+    raise ValueError(kind)

@@ -6,7 +6,11 @@
 * straggler watchdog (per-step wall time against a running median; it
   logs and counts);
 * preemption-safe: SIGTERM sets a flag, the loop checkpoints and exits
-  cleanly.
+  cleanly;
+* elastic restart: on a process grid the state's leaves are rank blocks
+  and ``state_shardings`` (``(grid, placement)`` per leaf) tells the
+  checkpoint how to gather and re-block them, so a run saved on one grid
+  resumes on another.
 """
 from __future__ import annotations
 
@@ -33,11 +37,13 @@ class TrainLoopConfig:
 
 class Trainer:
     def __init__(self, train_step: Callable, state, data_iter,
-                 cfg: TrainLoopConfig, log_fn: Callable = print):
+                 cfg: TrainLoopConfig, state_shardings=None,
+                 log_fn: Callable = print):
         self.train_step = train_step
         self.state = state
         self.data_iter = data_iter
         self.cfg = cfg
+        self.state_shardings = state_shardings
         self.log = log_fn
         self.step_times: list[float] = []
         self.straggler_events = 0
@@ -59,7 +65,7 @@ class Trainer:
             return 0
         device = tree.leaves(self.state)[0].device
         self.state = ckpt.restore(cfg.ckpt_dir, self.state, step,
-                                  device=device)
+                                  self.state_shardings, device=device)
         self.log(f"[trainer] restored checkpoint at step {step}")
         return step
 
@@ -70,14 +76,15 @@ class Trainer:
             self._ckpt_thread.join()
         self._ckpt_thread = ckpt.save(self.cfg.ckpt_dir, self.state, step,
                                       keep=self.cfg.ckpt_keep,
-                                      async_=self.cfg.ckpt_async)
+                                      async_=self.cfg.ckpt_async,
+                                      shardings=self.state_shardings)
 
     # -- main loop -------------------------------------------------------------
 
     def run(self) -> dict:
         cfg = self.cfg
         start = self.maybe_restore()
-        losses = []
+        losses, grad_norms = [], []
         for step in range(start, cfg.total_steps):
             if self._stop:
                 self.log(f"[trainer] preemption signal at step {step}; "
@@ -98,6 +105,7 @@ class Trainer:
                              f"{dt:.3f}s vs median {med:.3f}s")
             self.step_times.append(dt)
             losses.append(loss)
+            grad_norms.append(float(metrics["grad_norm"]))
             if step % cfg.log_every == 0:
                 self.log(f"[trainer] step {step} loss {loss:.4f} "
                          f"({dt*1e3:.0f} ms)")
@@ -105,5 +113,6 @@ class Trainer:
                 self._checkpoint(step + 1)
         if self._ckpt_thread is not None:
             self._ckpt_thread.join()
-        return {"losses": losses, "straggler_events": self.straggler_events,
+        return {"losses": losses, "grad_norms": grad_norms,
+                "straggler_events": self.straggler_events,
                 "steps_run": len(losses), "start_step": start}
