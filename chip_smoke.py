@@ -60,6 +60,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     kimi's MoE layer of 4d at prefill 1 x 4096 through ``moe_forward_ep``
     bitwise ``moe_forward``, and one rank's share of the production
     16-way model axis (24 of 384 experts) against its byte bound;
+4f. the dry-run, the op counter and the sharded serving path (no
+    kernel): 4c's published qwen3-0.6b through the sharded prefill
+    (1 x 4096) and 32 decode steps on a one-rank NCCL grid, bitwise the
+    unsharded prefill and decode, ms a token beside them (median and
+    range of 10 runs each, in alternating order); the op counter
+    around one real 4c train step on the card against the ``meta`` count
+    of the same step on a 1 x 1 layout (FLOPs, bytes, every op's count;
+    any difference is named); 4c's and 4d's measured step times beside
+    their roofline step times and dominant terms; ``python -m
+    repro_torch.launch.dryrun`` over every default cell on both
+    production layouts (16 x 16, 2 x 16 x 16), in parallel CLI processes
+    on the host's cores, with the per-rank table (trace time, peak GB,
+    fits, dominant term, MFU); ``python -m repro_torch.launch.diagnose``
+    for kimi-k2 ``train_4k``, top 10 ops;
 5. every other ported scenario at a small size, card == CPU bitwise
    (state, series, moments, extras): ensemble (bf16, f32), tempering
    (with accepted swaps), 3-D
@@ -112,8 +126,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 Every path of phases 4-9 runs with the kernel launch counts set to 0 just
 before and read just after: 2 per sweep for the form the path runs, 0 for
 the other forms and for the scenarios that run no kernel (the serving
-plane, the cluster/Potts meshes, Algorithm 1, rbg, every LM family and the
-LM sharding engine among them).
+plane, the cluster/Potts meshes, Algorithm 1, rbg, every LM family, the
+LM sharding engine and phase 4f among them).
 
 It prints one JSON line of kernel records, then the card line, then the
 contract line ``{"ok": true, "device": {...}}`` last. Without a CUDA device,
@@ -138,8 +152,10 @@ SIZE = 20480                 # 104.9 M sites per quad, 80 x 80 tiles of 128
 BS = 128
 MAIN_SWEEPS = 3
 CHAIN_SIZE = 4096
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
-F32_FLOPS = 67e12            # H100 SXM, f32 outside the tensor cores
+# the card's data-sheet rates (HBM bytes/s, f32 and dense bf16 FLOP/s):
+# one copy, repro_torch.analysis.roofline's, read in main() once the
+# package is importable
+HBM_BYTES_PER_S = F32_FLOPS = BF16_FLOPS = None
 FLOPS_PER_SITE = 10          # 3 adds, 1 multiply, <= 4 compares, 1 convert
 
 TILES_CU = "src/repro_torch/kernels/csrc/checkerboard_tiles.cu"
@@ -1289,7 +1305,6 @@ def phase_rbg(sweeps: int = 3) -> None:
 # qwen3-0.6b as published (the LM full-width phase)
 LM_ARCH = "qwen3-0.6b"
 LM_SEQ, LM_BATCH, LM_MICRO, LM_STEPS = 4096, 8, 4, 4
-BF16_FLOPS = 989e12          # H100 SXM, dense bf16 (NVIDIA data sheet)
 # the slice-7 families: mamba2-780m (the main path of the new layers),
 # recurrentgemma-2b and kimi-k2 at full width
 SSM_ARCH, REC_ARCH, MOE_ARCH = "mamba2-780m", "recurrentgemma-2b", \
@@ -1926,7 +1941,7 @@ def _moe_ep_one_rank(cfg, pm) -> None:
     dist.destroy_process_group()
 
 
-def phase_ssm_full() -> None:
+def phase_ssm_full() -> float:
     """The slice's main path: ``repro_torch.launch.train`` at the published
     mamba2-780m (48 's' layers, d_model 1536, d_inner 3072 = 48 heads of
     64, d_state 128, chunk 256, vocab 50280 padded to 50304, bf16, AdamW,
@@ -1934,7 +1949,7 @@ def phase_ssm_full() -> None:
     tokens/s, the share of the bf16 peak, peak memory, the losses; one
     microbatch by kernel; the chunked SSD of one layer and microbatch
     alone (CUDA events) and its share of a step; then prefill 1 x 4096
-    and 32 greedy decode steps."""
+    and 32 greedy decode steps. Returns the median step seconds."""
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import synthetic as syn
@@ -1996,6 +2011,7 @@ def phase_ssm_full() -> None:
     _serve("SSM full", cfg, params, LM_SEQ)
     del params
     _free()
+    return step_s
 
 
 def _train_loop(cfg, seq: int, batch: int, micro: int, steps: int,
@@ -2183,6 +2199,348 @@ def phase_moe_full() -> None:
     _no_launches("MoE full")
     del params, pm, x
     _free()
+
+
+# phase 4f: the dry-run's CLI processes (each default arch on each
+# production layout, the Ising cells, kimi's diagnose), run on the host's
+# cores beside the card's work; the archs with the most ops first
+DRYRUN_FIRST = ("kimi-k2-1t-a32b", "command-r-35b",
+                "llama4-maverick-400b-a17b", "nemotron-4-15b", "qwen3-4b")
+DIAGNOSE = ["--arch", "kimi-k2-1t-a32b", "--shape", "train_4k",
+            "--top", "10"]
+SERVE_PAIRS = 10    # 4f(a): timed runs of each serving path
+
+
+def _dryrun_jobs(out: Path) -> list:
+    """(argv, log path) of every dry-run CLI process."""
+    from repro_torch.configs import list_configs
+    archs = list(DRYRUN_FIRST) + [a for a in list_configs()
+                                  if a not in DRYRUN_FIRST]
+    py = [sys.executable, "-m"]
+    jobs = []
+    for i, arch in enumerate(archs):
+        for mesh in ("single", "multi"):
+            jobs.append((py + ["repro_torch.launch.dryrun", "--arch", arch,
+                               "--mesh", mesh, "--out",
+                               str(out / f"{arch}-{mesh}.jsonl")],
+                         out / f"{arch}-{mesh}.log"))
+        if i == 0:
+            jobs.append((py + ["repro_torch.launch.diagnose"] + DIAGNOSE,
+                         out / "diagnose.log"))
+    for arch in ("ising-640x128", "ising-pod"):
+        jobs.append((py + ["repro_torch.launch.dryrun", "--arch", arch,
+                           "--mesh", "both", "--out",
+                           str(out / f"{arch}.jsonl")],
+                     out / f"{arch}.log"))
+    return jobs
+
+
+def _run_jobs(jobs: list, workers: int, stop, done: list) -> None:
+    """Run ``jobs`` at most ``workers`` at a time (CPU only: no process
+    sees the card), appending (argv, return code, log path, seconds) to
+    ``done``; on ``stop`` kill what runs."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    pending, running = list(jobs), []
+    try:
+        while (pending or running) and not stop.is_set():
+            while pending and len(running) < workers:
+                argv, path = pending.pop(0)
+                f = open(path, "w")
+                running.append((subprocess.Popen(
+                    argv, stdout=f, stderr=subprocess.STDOUT, env=env,
+                    cwd=str(ROOT)), argv, f, path, time.perf_counter()))
+            time.sleep(0.5)
+            for item in list(running):
+                if item[0].poll() is not None:
+                    running.remove(item)
+                    item[2].close()
+                    done.append((item[1], item[0].returncode, item[3],
+                                 time.perf_counter() - item[4]))
+    finally:
+        for proc, _, f, _, _ in running:
+            proc.kill()
+            proc.wait()
+            f.close()
+
+
+def _sharded_serving(cfg, params) -> None:
+    """(a): qwen3-0.6b through the sharded prefill (1 x 4096) and 32
+    greedy decode steps on a one-rank NCCL grid against the unsharded
+    prefill and decode of 4c, bitwise (every step's logits, the final
+    states); prefill ms and decode ms a token of both, over
+    ``SERVE_PAIRS`` runs of each in alternating order (median, range)."""
+    import statistics
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import synthetic as syn
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    card = card_line()
+    n_decode, max_len = 32, LM_SEQ + 32
+    prompt = syn.device_batch(0, ShapeConfig(
+        "p", seq_len=LM_SEQ, global_batch=1, kind="train"), cfg,
+        "cuda")["tokens"]
+    init_group()
+    grid = mesh_lib.make_grid((1, 1), ("data", "model"), "cuda")
+    rules = SH.rules_for(cfg)
+    places = SH.resolve_tree(grid, T.model_specs(cfg), params, rules)
+    axes, _ = SH.batch_rows(grid, rules, 1)
+    sp = M.decode_state_placements(cfg, grid, 1, max_len, rules)
+    fns = {"unsharded": (M.make_prefill(cfg, max_len),
+                         M.make_decode_step(cfg)),
+           "sharded": (M.make_sharded_prefill(cfg, grid, places, axes, sp,
+                                              rules, max_len),
+                       M.make_sharded_decode_step(cfg, grid, places, axes,
+                                                  sp, rules))}
+    for prefill, decode in fns.values():                       # warm-up
+        logits, states = prefill(params, {"tokens": prompt})
+        decode(params, states, {"tokens": logits.argmax(-1).int(),
+                                "pos": LM_SEQ})
+        del logits, states
+    # u s s u u s s u ...: each side runs first as often as second
+    order = [("unsharded", "sharded")[(i + 1) // 2 % 2]
+             for i in range(2 * SERVE_PAIRS)]
+    ms = {name: ([], []) for name in fns}
+    first = None
+    for name in order:
+        prefill, decode = fns[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, states = prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        ms[name][0].append((time.perf_counter() - t0) * 1e3)
+        seen = [logits]
+        tok = logits.argmax(-1).int()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(LM_SEQ, LM_SEQ + n_decode):
+            logits, states = decode(params, states,
+                                    {"tokens": tok, "pos": pos})
+            tok = logits.argmax(-1).int()
+            seen.append(logits)
+        torch.cuda.synchronize()
+        ms[name][1].append((time.perf_counter() - t0) * 1e3 / n_decode)
+        seen += tree.leaves(states)
+        if first is None:
+            first = seen
+        elif not all(torch.equal(a, b) for a, b in zip(first, seen)):
+            raise AssertionError(f"4f sharded serving: a {name} run's "
+                                 "logits or states differ from the first "
+                                 "unsharded run's")
+        del logits, states, seen
+
+    def stat(xs, fmt):
+        return (f"{statistics.median(xs):{fmt}} ({min(xs):{fmt}}-"
+                f"{max(xs):{fmt}})")
+    log(f"4f sharded serving {LM_ARCH} on a one-rank NCCL grid ({card}): "
+        f"prefill 1 x {LM_SEQ} and {n_decode} greedy decode steps == the "
+        f"unsharded ones, bitwise (every step's logits, the final states); "
+        f"{SERVE_PAIRS} runs of each, order {' '.join(n[0] for n in order)}"
+        f", median (min-max): prefill {stat(ms['sharded'][0], '.1f')} ms "
+        f"(unsharded {stat(ms['unsharded'][0], '.1f')}), decode "
+        f"{stat(ms['sharded'][1], '.3f')} ms a token (unsharded "
+        f"{stat(ms['unsharded'][1], '.3f')}); runs in order: sharded "
+        f"{[round(x, 3) for x in ms['sharded'][1]]}, unsharded "
+        f"{[round(x, 3) for x in ms['unsharded'][1]]}")
+    dist.destroy_process_group()
+
+
+def _meta_step_count(cfg, micro: int):
+    """The ``meta`` count of ``cfg``'s train step at seq 4096, batch 8 in
+    ``micro`` microbatches, on a rankless 1 x 1 layout."""
+    from repro_torch.analysis import op_cost as OC
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun_lib as lib
+    from repro_torch.launch import mesh as mesh_lib
+    grid = mesh_lib.rankless_grid(mesh_lib.Layout((1, 1), ("data",
+                                                           "model")))
+    fn, args = lib.build_train_cell(cfg, ShapeConfig(
+        "4c", seq_len=LM_SEQ, global_batch=LM_BATCH, kind="train"), grid,
+        micro)
+    return OC.count(fn, *args, records=grid.records)[1]
+
+
+def _card_vs_meta(cfg, ocfg):
+    """(b): the op counter around one real train step of 4c on the card
+    against the meta count of the same step; returns the card's counter."""
+    import torch
+    from repro_torch.analysis import op_cost as OC
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import synthetic as syn
+    from repro_torch.train import train_step as TS
+    card = card_line()
+    gen = torch.Generator("cuda").manual_seed(0)
+    state = TS.init_train_state(cfg, ocfg, gen, "cuda")
+    batch = syn.device_batch(0, ShapeConfig(
+        "4c", seq_len=LM_SEQ, global_batch=LM_BATCH, kind="train"), cfg,
+        "cuda")
+    step = TS.make_train_step(cfg, ocfg, LM_MICRO)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    counter = OC.OpCounter((state, batch))
+    with counter:
+        out = step(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    alloc_peak = torch.cuda.max_memory_allocated()
+    mem = counter.memory(out)
+    del state, batch, out
+    _free()
+    t0 = time.perf_counter()
+    meta = _meta_step_count(cfg, LM_MICRO)
+    meta_s = time.perf_counter() - t0
+    names = sorted(set(counter.per_op) | set(meta.per_op))
+    diff = {n: (counter.per_op.get(n), meta.per_op.get(n)) for n in names
+            if counter.per_op.get(n) != meta.per_op.get(n)}
+    n_ops = sum(v[0] for v in counter.per_op.values())
+    log(f"4f card vs meta ({card}): one {LM_ARCH} train step (seq "
+        f"{LM_SEQ}, batch {LM_BATCH} in {LM_MICRO}) counted on the card "
+        f"({wall:.1f} s under the counter) and on meta, 1 x 1 layout "
+        f"({meta_s:.1f} s): {n_ops} ops of {len(counter.per_op)} kinds on "
+        f"the card, {sum(v[0] for v in meta.per_op.values())} on meta; "
+        f"FLOPs {counter.flops:.6e} / {meta.flops:.6e}, bytes "
+        f"{counter.bytes:.6e} / {meta.bytes:.6e}, matmul FLOPs by type "
+        f"{counter.matmul_flops} / {meta.matmul_flops}; tracked peak "
+        f"{mem['peak_gb']:.3f} GB on the card, "
+        f"{(meta.argument_bytes + meta.peak_bytes) / 1e9:.3f} GB on meta, "
+        f"torch.cuda.max_memory_allocated "
+        f"{alloc_peak / 1e9:.3f} GB")
+    # the port picks no op by device but layers.matmul_f32, which takes
+    # the card's form on meta too: any difference is a fault to explain
+    for n, (c, m) in diff.items():
+        log(f"  differs: {n}: card [count, FLOPs, bytes] {c}, meta {m}")
+    if diff:
+        raise AssertionError(f"4f card vs meta: {sorted(diff)} differ")
+    log("  every op's count, FLOPs and bytes: equal")
+    return counter
+
+
+def _roofline_line(label: str, cfg, counter, step_s: float) -> None:
+    """(c): a measured step beside its roofline step time."""
+    from repro_torch.analysis import roofline as RL
+    from repro_torch.configs.base import ShapeConfig
+    rl = RL.from_cost(counter.cost(), 1, RL.lm_model_flops(cfg, ShapeConfig(
+        "4c", seq_len=LM_SEQ, global_batch=LM_BATCH, kind="train")))
+    log(f"4f roofline {label} ({card_line()}): measured {step_s * 1e3:.1f} "
+        f"ms a step; roofline {rl.step_time_s * 1e3:.1f} ms (compute "
+        f"{rl.compute_s * 1e3:.1f}: matmul FLOPs by type "
+        f"{ {k: f'{v:.4e}' for k, v in counter.matmul_flops.items()} }, "
+        f"other {counter.flops - sum(counter.matmul_flops.values()):.4e}; "
+        f"memory {rl.memory_s * 1e3:.1f}: {counter.bytes:.4e} bytes; "
+        f"collective {rl.collective_s * 1e3:.1f}), {rl.dominant} dominates; "
+        f"the eager step takes {step_s / rl.step_time_s:.2f}x its roofline "
+        f"time; model FLOPs {rl.model_flops:.4e}, MFU at the roofline "
+        f"{rl.mfu:.2%}")
+
+
+def _dryrun_table(out: Path, done: list) -> None:
+    """(d), (e): every default cell [OK] or the reference's [SKIP], the
+    per-rank table, and kimi's diagnose."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.launch import dryrun_lib as lib
+    bad = [(argv, rc, path) for argv, rc, path, _ in done if rc]
+    for argv, rc, path in bad:
+        log(f"4f dry-run: {' '.join(argv[2:])} exited {rc}:\n"
+            f"{Path(path).read_text()[-3000:]}")
+    if bad:
+        raise AssertionError(f"4f dry-run: {len(bad)} processes failed")
+    recs = {}
+    for path in sorted(out.glob("*.jsonl")):
+        for line in path.read_text().splitlines():
+            r = json.loads(line)
+            recs[(r["arch"], r["shape"], r["mesh"])] = r
+    want = [(a, s, m) for a, s in lib.default_cells()
+            for m in ("pod-16x16", "pods-2x16x16")]
+    missing = [k for k in want if k not in recs]
+    if missing:
+        raise AssertionError(f"4f dry-run: no record of {missing}")
+    log(f"4f dry-run ({card_line()}): {len(want)} cells in "
+        f"{len(done)} CLI processes, "
+        f"{max(t for *_, t in done):.1f} s the longest; per rank:")
+    log(f"  {'arch':26s} {'shape':12s} {'layout':13s} {'trace_s':>8s} "
+        f"{'peak_gb':>10s} {'fits':>5s} {'dominant':>10s} {'mfu':>9s} "
+        f"{'TFLOP':>10s} {'HBM GB':>10s} {'wire GB':>9s}")
+    for a, sh, m in want:
+        r = recs[(a, sh, m)]
+        if r.get("skipped"):
+            reason = lib.skip_reason(get_config(a), LM_SHAPES[sh])
+            if r["reason"] != reason:
+                raise AssertionError(f"4f dry-run: {a} {sh} skipped: "
+                                     f"{r['reason']}")
+            log(f"  {a:26s} {sh:12s} {m:13s} [SKIP] {reason[:40]}")
+            continue
+        if not r["ok"]:
+            raise AssertionError(f"4f dry-run: {a} {sh} {m} failed: "
+                                 f"{r.get('error')}")
+        rl, mem = r["roofline"], r["memory"]
+        log(f"  {a:26s} {sh:12s} {m:13s} {r['trace_s']:8.2f} "
+            f"{mem['peak_gb']:10.2f} {str(r['fits']):>5s} "
+            f"{rl['dominant']:>10s} {rl['mfu']:9.4%} "
+            f"{rl['flops_per_device'] / 1e12:10.2f} "
+            f"{rl['hbm_bytes_per_device'] / 1e9:10.1f} "
+            f"{rl['wire_bytes_per_device'] / 1e9:9.2f}")
+    log("4f diagnose --arch kimi-k2-1t-a32b --shape train_4k --top 10:")
+    for line in (out / "diagnose.log").read_text().splitlines():
+        log(f"  {line}")
+
+
+def phase_dryrun(qwen_step_s: float, ssm_step_s: float) -> None:
+    """Phase 4f (no kernel): (a) the sharded serving path on one NCCL
+    rank, then, while the dry-run's CLI processes run on the host's other
+    cores, (b) the op counter on the card against meta and (c) 4c's and
+    4d's steps beside their roofline; then (d) the dry-run's per-rank
+    table and (e) kimi's diagnose. Every kernel count stays 0."""
+    import os
+    import threading
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import checkerboard as kern
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    kern.reset_launches()
+    _free()
+    cfg = get_config(LM_ARCH)
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = T.init_model(cfg, gen, "cuda")
+    _sharded_serving(cfg, params)
+    del params
+    _free()
+    out = ROOT / "build" / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    for old in out.glob("*"):
+        old.unlink()
+    jobs = _dryrun_jobs(out)
+    workers = max(1, min(6, (os.cpu_count() or 2) - 2))
+    stop, done = threading.Event(), []
+    runner = threading.Thread(target=_run_jobs,
+                              args=(jobs, workers, stop, done))
+    t0 = time.perf_counter()
+    runner.start()
+    try:
+        counter = _card_vs_meta(cfg, opt.OptimizerConfig(kind=cfg.optimizer))
+        _roofline_line(f"{LM_ARCH} (4c)", cfg, counter, qwen_step_s)
+        del counter
+        ssm = get_config(SSM_ARCH)
+        _roofline_line(f"{SSM_ARCH} (4d, the meta count)", ssm,
+                       _meta_step_count(ssm, LM_MICRO), ssm_step_s)
+        runner.join()
+    finally:
+        stop.set()
+        runner.join()
+    log(f"4f dry-run processes ({workers} at a time): "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    if len(done) != len(jobs):
+        raise AssertionError(f"4f dry-run: {len(done)} of {len(jobs)} "
+                             "processes ended")
+    _dryrun_table(out, done)
+    _no_launches("4f dry-run, counter and sharded serving")
 
 
 def sm_clock_hz() -> float:
@@ -2378,6 +2736,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    global HBM_BYTES_PER_S, F32_FLOPS, BF16_FLOPS
+    from repro_torch.analysis import roofline as RL
+    HBM_BYTES_PER_S, F32_FLOPS, BF16_FLOPS = (RL.HBM_BW, RL.F32_FLOPS,
+                                              RL.BF16_FLOPS)
     t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -2388,16 +2750,20 @@ def main() -> int:
     phase_main_path(launches)
     phase_small_and_chain()
     t_lm = time.perf_counter()
-    twin = {}
+    twin, ssm_step_s = {}, 0.0
     for phase in (phase_algorithm1, phase_rbg, phase_lm_small,
                   phase_lm_scores, phase_lm_full, phase_lm_sharded,
                   phase_lm_small_families, phase_ssm_full, phase_rec_full,
-                  phase_moe_full):
+                  phase_moe_full, phase_dryrun):
         t0 = time.perf_counter()
         if phase is phase_lm_full:
             twin = phase()
         elif phase is phase_lm_sharded:
             phase(twin)
+        elif phase is phase_ssm_full:
+            ssm_step_s = phase()
+        elif phase is phase_dryrun:
+            phase(twin["step_s"], ssm_step_s)
         else:
             phase()
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")

@@ -97,9 +97,12 @@ def _device_key(key, cfg: DistIsingConfig, grid):
 def rbg_bits(k, shape, device) -> torch.Tensor:
     """``rng="rbg"``'s uint32 bits (an int32 pattern) for key ``k``: the
     device generator seeded with the key's two words. The same key gives
-    the same bits on the same device; CPU and CUDA generators differ."""
-    gen = torch.Generator(device)
-    gen.manual_seed((k[0] << 32) | k[1])
+    the same bits on the same device; CPU and CUDA generators differ.
+    ``meta`` tensors hold no values and have no generator."""
+    gen = None
+    if torch.device(device).type != "meta":
+        gen = torch.Generator(device)
+        gen.manual_seed((k[0] << 32) | k[1])
     return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
                          generator=gen, device=device)
 

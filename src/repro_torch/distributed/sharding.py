@@ -137,6 +137,42 @@ def local_blocks(grid, full_tree, placements):
                     placements)
 
 
+def _whole(grid, block, placement):
+    """The global tensor of a rank's block (the block itself when the
+    placement shards nothing)."""
+    if grid.axis_size([a for e in placement for a in as_axes(e)]) == 1:
+        return block
+    return grid.gather(block, placement)
+
+
+def gather_tree(grid, blocks, placements):
+    """Every leaf of a tree of rank blocks, whole."""
+    return tree.map(lambda a, p: _whole(grid, a, p), blocks, placements)
+
+
+def gather_except(grid, block, placement, axes):
+    """``block`` gathered along every dim not placed over ``axes``: this
+    rank's rows over the batch axes ``axes``, whole along the others."""
+    out = block
+    for dim, entry in enumerate(placement):
+        e = as_axes(entry)
+        if e and e != axes:
+            out = grid.all_gather(out, e, dim)
+    return out
+
+
+def block_except(grid, full, placement, axes):
+    """This rank's block of ``full`` along every dim not placed over
+    ``axes`` (a view; the inverse of :func:`gather_except`)."""
+    out = full
+    for dim, entry in enumerate(placement):
+        e = as_axes(entry)
+        if e and e != axes and grid.axis_size(e) > 1:
+            n = out.shape[dim] // grid.axis_size(e)
+            out = out.narrow(dim, grid.axis_index(e) * n, n)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # activation context
 # ---------------------------------------------------------------------------

@@ -33,6 +33,11 @@ launcher's ``--devices N`` and the tests).
 A :class:`Layout` is a grid's shape and axis names alone, with no ranks:
 the sharding rules resolve on it as on a grid
 (:func:`production_layout`: the reference's 16 x 16 and 2 x 16 x 16).
+:func:`rankless_grid` is one chosen rank of a layout on ``meta`` tensors
+with no process group: its collectives take a real rank's branches and
+only record what they would send (the dry-run's grid). Any grid whose
+``records`` is a list appends its collectives there, as
+:class:`~repro_torch.analysis.collectives.Collective`.
 """
 from __future__ import annotations
 
@@ -44,6 +49,8 @@ import tempfile
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.analysis.collectives import Collective
 
 # collectives a grid issued, and iterations of the cross-rank label merge
 # (repro_torch.cluster.mesh), one all-reduce of a changed flag each
@@ -109,6 +116,9 @@ class DeviceGrid:
     rank: int
     device: torch.device
     distributed: bool = False   # a process group carries the collectives
+    # the collectives issued, in order, when a list (None: not recorded)
+    records: list = dataclasses.field(default=None, repr=False,
+                                      compare=False, hash=False)
     # axes -> (this rank's ring group, the ring's ranks), made on first use
     _rings: dict = dataclasses.field(default_factory=dict, repr=False,
                                      compare=False, hash=False)
@@ -162,6 +172,17 @@ class DeviceGrid:
 
     # -- collectives --------------------------------------------------------
 
+    def _ring_ranks(self, axes) -> list:
+        """Every ring of ``axes``: its ranks in ``axis_index`` order, the
+        rings in the order of their first rank."""
+        rings = {}
+        for r in range(self.size):
+            c = self.coords_of(r)
+            rest = tuple(v for i, v in enumerate(c)
+                         if i not in self._dims(axes))
+            rings.setdefault(rest, []).append((self.axis_index(axes, c), r))
+        return [[r for _, r in sorted(ring)] for ring in rings.values()]
+
     def _ring(self, axes) -> tuple:
         """(the process group of this rank's ring of ``axes``, its ranks in
         ``axis_index`` order). The first call for ``axes`` creates every
@@ -169,27 +190,33 @@ class DeviceGrid:
         wants all ranks at each call)."""
         axes = as_axes(axes)
         if axes not in self._rings:
-            rings = {}
-            for r in range(self.size):
-                c = self.coords_of(r)
-                rest = tuple(v for i, v in enumerate(c)
-                             if i not in self._dims(axes))
-                rings.setdefault(rest, []).append(
-                    (self.axis_index(axes, c), r))
-            for ring in rings.values():
-                ranks = [r for _, r in sorted(ring)]
+            for ranks in self._ring_ranks(axes):
                 group = dist.new_group(sorted(ranks))
                 if self.rank in ranks:
                     self._rings[axes] = (group, ranks)
         return self._rings[axes]
 
+    def _comm(self, kind: str, ranks, operand: torch.Tensor,
+              call) -> None:
+        """Issue one collective of ``operand`` over the ring of ``ranks``
+        (``call`` runs it), recording it when the grid records (an
+        all-gather's result is one operand a rank, the others' one)."""
+        if self.records is not None:
+            nbytes = operand.numel() * operand.element_size()
+            n = len(ranks) if kind == "all-gather" else 1
+            self.records.append(Collective(kind, nbytes * n, nbytes,
+                                           tuple(ranks)))
+        call()
+
     def _reduce(self, x: torch.Tensor, axes, op) -> torch.Tensor:
         if not self.distributed or (axes is not None
                                     and self.axis_size(axes) == 1):
             return x
-        group = None if axes is None else self._ring(axes)[0]
+        group, ranks = ((None, range(self.size)) if axes is None
+                        else self._ring(axes))
         buf = x.detach().reshape(-1).clone()
-        dist.all_reduce(buf, op=op, group=group)
+        self._comm("all-reduce", ranks, buf,
+                   lambda: dist.all_reduce(buf, op=op, group=group))
         counters["all_reduce"] += 1
         return buf.reshape(x.shape)
 
@@ -212,8 +239,9 @@ class DeviceGrid:
         group, ranks = self._ring(axes)
         x = x.detach().contiguous()
         blocks = [torch.empty_like(x) for _ in ranks]
-        dist.all_gather(blocks, x, group=group)   # in group (sorted) order
-        counters["gather"] += 1
+        self._comm("all-gather", ranks, x,
+                   lambda: dist.all_gather(blocks, x, group=group))
+        counters["gather"] += 1     # blocks in group (sorted) order
         by_rank = dict(zip(sorted(ranks), blocks))
         return torch.cat([by_rank[r] for r in ranks], dim)
 
@@ -228,11 +256,16 @@ class DeviceGrid:
         src = self._ring_rank(axes, (k - delta) % n)
         out_plane = plane.contiguous()
         in_plane = torch.empty_like(out_plane)
-        reqs = dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, out_plane, dst),
-            dist.P2POp(dist.irecv, in_plane, src)])
-        for req in reqs:
-            req.wait()
+
+        def exchange():
+            reqs = dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, out_plane, dst),
+                dist.P2POp(dist.irecv, in_plane, src)])
+            for req in reqs:
+                req.wait()
+
+        ring = [self._ring_rank(axes, i) for i in range(n)]
+        self._comm("collective-permute", ring, out_plane, exchange)
         counters["send"] += 1
         return in_plane
 
@@ -267,17 +300,47 @@ class DeviceGrid:
         counters["gather"] += 1
         if dst is None:
             blocks = [torch.empty_like(local) for _ in range(self.size)]
-            dist.all_gather(blocks, local)
-        else:
+            self._comm("all-gather", range(self.size), local,
+                       lambda: dist.all_gather(blocks, local))
+        else:   # priced as the all-gather it completes on rank dst
             blocks = ([torch.empty_like(local) for _ in range(self.size)]
                       if self.rank == dst else None)
-            dist.gather(local, blocks, dst=dst)
+            self._comm("all-gather", range(self.size), local,
+                       lambda: dist.gather(local, blocks, dst=dst))
             if self.rank != dst:
                 return None
         full = local.new_empty(self.global_shape(local.shape, placement))
         for r, blk in enumerate(blocks):
             self._block_view(full, placement, self.coords_of(r)).copy_(blk)
         return full
+
+
+class _RanklessGrid(DeviceGrid):
+    """One rank of a layout with no process group: every collective takes
+    the branches a real rank takes and is recorded, but sends nothing
+    (its results keep the shapes a real one gives)."""
+
+    def _ring(self, axes) -> tuple:
+        axes = as_axes(axes)
+        if axes not in self._rings:
+            self._rings[axes] = (None, next(
+                r for r in self._ring_ranks(axes) if self.rank in r))
+        return self._rings[axes]
+
+    def _comm(self, kind, ranks, operand, call) -> None:
+        super()._comm(kind, ranks, operand, lambda: None)
+
+
+def rankless_grid(layout, rank: int = 0) -> DeviceGrid:
+    """Rank ``rank`` of ``layout`` (a :class:`Layout` or grid) as a grid
+    that needs no process group: its tensors live on ``meta`` (shapes
+    only) and its collectives are recorded in ``grid.records`` without
+    being sent."""
+    shape, axes = tuple(layout.shape), tuple(layout.axes)
+    if not 0 <= rank < math.prod(shape):
+        raise ValueError(f"rank {rank} is not on a {shape} grid")
+    return _RanklessGrid(shape, axes, rank, torch.device("meta"),
+                         distributed=True, records=[])
 
 
 def make_grid(shape: tuple, axes: tuple, device=None) -> DeviceGrid:

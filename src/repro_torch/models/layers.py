@@ -128,11 +128,12 @@ NEG_INF = -1e30
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in f32 for operands of any float dtype: [..., m, k] @
     [..., k, n] with equal leading dims. bf16/f16 operands on the card go
-    through one bf16-in, f32-out batched GEMM; elsewhere the operands are
+    through one bf16-in, f32-out batched GEMM (on ``meta`` too, so that a
+    dry-run counts the card's program); elsewhere the operands are
     widened to f32 (exact) first."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return torch.matmul(a, b)
-    if a.is_cuda and a.dtype == b.dtype:
+    if (a.is_cuda or a.is_meta) and a.dtype == b.dtype:
         lead = a.shape[:-2]
         out = torch.bmm(a.reshape((-1,) + a.shape[-2:]),
                         b.reshape((-1,) + b.shape[-2:]),

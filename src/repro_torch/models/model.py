@@ -1,7 +1,21 @@
 """Public model API: the loss, the step functions, and the abstract input
 batch of every (architecture x shape) cell with its logical dims (the
 port of ``repro.models.model``). Abstract tensors live on the ``meta``
-device: shapes and dtypes, no storage."""
+device: shapes and dtypes, no storage.
+
+:func:`make_sharded_prefill` and :func:`make_sharded_decode_step` are the
+serving functions on a process grid, in the pattern of
+``train.train_step.make_sharded_train_step``: the counterpart of the
+reference's jitted ``make_prefill`` / ``make_decode_step`` with sharded
+parameters, batch and decode states (``repro.launch.dryrun_lib``). A rank
+holds its blocks of the parameters under the resolved placements and
+gathers them whole, takes its rows of the batch over the batch axes, and
+runs the body inside ``distributed.sharding.activation_sharding`` (the
+MoE takes its grid forms there). Decode states are this rank's blocks
+under :func:`decode_state_placements`: its rows over the batch axes, and
+along "model" where that splits them, gathered there for the step and
+written back into the rank's blocks in place. On a one-rank grid each is
+the unsharded function, bitwise."""
 from __future__ import annotations
 
 import functools
@@ -9,7 +23,9 @@ from typing import Callable
 
 import torch
 
+from repro_torch import tree
 from repro_torch.core.lattice import torch_dtype
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import transformer
 
 
@@ -125,4 +141,85 @@ def make_decode_step(cfg) -> Callable:
     @torch.no_grad()
     def fn(params, states, batch):
         return transformer.decode_step(params, cfg, states, batch)
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# sharded serving (a process grid)
+# ---------------------------------------------------------------------------
+
+
+def decode_state_placements(cfg, grid, batch: int, max_len: int,
+                            rules=None):
+    """The placement of every decode-state leaf of a ``batch`` x
+    ``max_len`` cache on ``grid`` (a grid or a layout), resolved from
+    ``meta`` templates by the rules."""
+    states = transformer.init_states(cfg, batch, max_len, device="meta")
+    return SH.resolve_tree(grid, transformer.state_specs(cfg), states,
+                           rules or SH.rules_for(cfg))
+
+
+def _check_rows(cfg, states, placements, batch_axes) -> None:
+    """Every decode-state leaf must split its batch dim over the batch
+    axes, as the batch does."""
+    def one(_, dims, p):
+        got = SH.as_axes(p[dims.index("batch")])
+        if got != batch_axes:
+            raise ValueError(f"a decode state placed {p} splits its batch "
+                             f"over {got}, the batch over {batch_axes}")
+    tree.map(one, states, transformer.state_specs(cfg), placements)
+
+
+def make_sharded_prefill(cfg, grid, placements, batch_axes,
+                         state_placements, rules=None,
+                         max_len: int = 0) -> Callable:
+    """``fn(param_blocks, batch) -> (last logits, state blocks)``: the
+    prefill on ``grid``. ``placements`` are the parameters' (the model
+    specs resolved by ``rules``); ``batch`` holds this rank's rows over
+    ``batch_axes`` (``distributed.sharding.batch_rows``); the states come
+    back as this rank's blocks under ``state_placements``
+    (:func:`decode_state_placements` of the cache, ``max_len`` long)."""
+    prefill = make_prefill(cfg, max_len)
+    rules = rules or SH.rules_for(cfg)
+    batch_axes = SH.as_axes(batch_axes)
+
+    def fn(blocks, batch):
+        params = SH.gather_tree(grid, blocks, placements)
+        with SH.activation_sharding(grid, rules, batch_axes):
+            logits, states = prefill(params, batch)
+        _check_rows(cfg, states, state_placements, batch_axes)
+        return logits, tree.map(
+            lambda s, p: SH.block_except(grid, s, p, batch_axes).contiguous(),
+            states, state_placements)
+
+    return fn
+
+
+def make_sharded_decode_step(cfg, grid, placements, batch_axes,
+                             state_placements, rules=None) -> Callable:
+    """``fn(param_blocks, state_blocks, batch) -> (logits, state_blocks)``:
+    one decode step on ``grid``. The state blocks are gathered along the
+    axes other than the batch's, stepped, and updated in place (the
+    returned blocks are the arguments)."""
+    decode = make_decode_step(cfg)
+    rules = rules or SH.rules_for(cfg)
+    batch_axes = SH.as_axes(batch_axes)
+
+    def fn(blocks, states, batch):
+        _check_rows(cfg, states, state_placements, batch_axes)
+        params = SH.gather_tree(grid, blocks, placements)
+        full = tree.map(lambda s, p: SH.gather_except(grid, s, p, batch_axes),
+                        states, state_placements)
+        with SH.activation_sharding(grid, rules, batch_axes):
+            logits, new = decode(params, full, batch)
+
+        def write_back(blk, s, p):
+            if s is not blk:
+                blk.copy_(SH.block_except(grid, s, p, batch_axes))
+            return blk
+
+        with torch.no_grad():
+            return logits, tree.map(write_back, states, new,
+                                    state_placements)
+
     return fn

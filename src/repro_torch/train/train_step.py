@@ -114,14 +114,6 @@ def make_train_step(cfg, opt_cfg: opt.OptimizerConfig,
     return train_step
 
 
-def _whole(grid, block, placement):
-    """The global tensor of a rank's block (the block itself when the
-    placement shards nothing)."""
-    if grid.axis_size([a for e in placement for a in SH.as_axes(e)]) == 1:
-        return block
-    return grid.gather(block, placement)
-
-
 def make_sharded_train_step(cfg, opt_cfg: opt.OptimizerConfig, grid,
                             placements: dict, batch_axes, rules=None,
                             microbatches: int = 1) -> Callable:
@@ -137,12 +129,9 @@ def make_sharded_train_step(cfg, opt_cfg: opt.OptimizerConfig, grid,
     batch_axes = SH.as_axes(batch_axes)
     n = grid.axis_size(batch_axes)
 
-    def gather(blocks, places):
-        return tree.map(lambda a, p: _whole(grid, a, p), blocks, places)
-
     def train_step(state, batch):
         blocks = state["params"]
-        params = gather(blocks, placements["params"])
+        params = SH.gather_tree(grid, blocks, placements["params"])
         with SH.activation_sharding(grid, rules, batch_axes):
             loss_val, grads = _accumulate(grad_fn, params, batch,
                                           microbatches)
@@ -161,7 +150,8 @@ def make_sharded_train_step(cfg, opt_cfg: opt.OptimizerConfig, grid,
                 # rows, columns and tensors: update the whole tensors,
                 # keep this rank's blocks
                 new_params, new_opt = update(
-                    grads, gather(state["opt"], placements["opt"]), params,
+                    grads, SH.gather_tree(grid, state["opt"],
+                                          placements["opt"]), params,
                     opt_cfg)
                 new_params = SH.local_blocks(grid, new_params,
                                              placements["params"])
