@@ -73,7 +73,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     production layouts (16 x 16, 2 x 16 x 16), in parallel CLI processes
     on the host's cores, with the per-rank table (trace time, peak GB,
     fits, dominant term, MFU); ``python -m repro_torch.launch.diagnose``
-    for kimi-k2 ``train_4k``, top 10 ops;
+    for kimi-k2 ``train_4k``, top 10 ops; one rank's share of the
+    tensor-parallel step on the card: rank 0 of 16 x 16 ``train_4k`` for
+    qwen3-4b (its state blocks and batch rows as real tensors, its
+    collectives recorded and not sent, so its values are only checked
+    finite), its op count against the ``meta`` count of the same rank op
+    for op, one step's ms against that rank's roofline (and the device's
+    busy share of a profiled step), its tracked peak against
+    ``torch.cuda.max_memory_allocated``;
 5. every other ported scenario at a small size, card == CPU bitwise
    (state, series, moments, extras): ensemble (bf16, f32), tempering
    (with accepted swaps), 3-D
@@ -2421,6 +2428,120 @@ def _card_vs_meta(cfg, ocfg):
     return counter
 
 
+# 4f(f): one rank's share of a production tensor-parallel train step
+SHARE_ARCH, SHARE_SHAPE, SHARE_RANK = "qwen3-4b", "train_4k", 0
+
+
+def _rank_share_on_card() -> None:
+    """(f): rank ``SHARE_RANK`` of the 16 x 16 layout on the card, through
+    the dry-run's own cell (``dryrun_lib.build_train_cell``): the same
+    rankless grid on ``cuda``, its ``meta`` blocks made real (small
+    seeded values, token ids 0). Nothing is sent, so the values are not a
+    real rank's and are only checked finite; the op count must equal the
+    ``meta`` count of the same rank op for op."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import tree
+    from repro_torch.analysis import op_cost as OC
+    from repro_torch.analysis import roofline as RL
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.launch import dryrun_lib as lib
+    from repro_torch.launch import mesh as mesh_lib
+    card = card_line()
+    cfg, shape = get_config(SHARE_ARCH), LM_SHAPES[SHARE_SHAPE]
+    layout = mesh_lib.production_layout()
+    micro = lib.MICROBATCHES[SHARE_ARCH]
+    t0 = time.perf_counter()
+    meta_grid = mesh_lib.rankless_grid(layout, SHARE_RANK)
+    fn, args = lib.build_train_cell(cfg, shape, meta_grid, micro)
+    _, meta = OC.count(fn, *args, records=meta_grid.records)
+    meta_s = time.perf_counter() - t0
+    rl = RL.from_cost(meta.cost(), math.prod(layout.shape),
+                      RL.lm_model_flops(cfg, shape))
+    grid = mesh_lib.rankless_grid(layout, SHARE_RANK, "cuda")
+    fn, args = lib.build_train_cell(cfg, shape, grid, micro)
+    gen = torch.Generator("cuda").manual_seed(0)
+
+    def real(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if not x.is_meta:
+            return x.to("cuda")
+        if x.dtype.is_floating_point:   # >= 0: second moments are
+            return (torch.randn(x.shape, generator=gen, device="cuda")
+                    .abs_() * 0.02).to(x.dtype)
+        return torch.zeros(x.shape, dtype=x.dtype, device="cuda")
+
+    args = tree.map(real, list(args))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counter = OC.OpCounter(args, records=grid.records)
+    with counter:
+        out = fn(*args)
+    torch.cuda.synchronize()
+    alloc_peak = torch.cuda.max_memory_allocated()
+    mem = counter.memory(out)
+    finite = all(bool(torch.isfinite(t).all()) for t in tree.leaves(out)
+                 if t.dtype.is_floating_point)
+    del out
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        del out
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t1
+    del out
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    launched = sum(e.count for e in events)
+    names = sorted(set(counter.per_op) | set(meta.per_op))
+    diff = {n: (counter.per_op.get(n), meta.per_op.get(n)) for n in names
+            if counter.per_op.get(n) != meta.per_op.get(n)}
+    n_ops = sum(v[0] for v in counter.per_op.values())
+    ms = sorted(times)[1] * 1e3
+    log(f"4f rank share ({card}): rank {SHARE_RANK} of 16 x 16 "
+        f"{SHARE_SHAPE} {SHARE_ARCH} ({micro} microbatches; meta count "
+        f"{meta_s:.1f} s): {n_ops} ops of {len(counter.per_op)} kinds on "
+        f"the card, {sum(v[0] for v in meta.per_op.values())} on meta; "
+        f"FLOPs {counter.flops:.6e} / {meta.flops:.6e}, bytes "
+        f"{counter.bytes:.6e} / {meta.bytes:.6e}; collectives recorded "
+        f"{len(counter.collectives)} / {len(meta.collectives)}; "
+        f"finite: {finite}; one step {ms:.1f} ms (median of 3: "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times)}) against its "
+        f"roofline {rl.step_time_s * 1e3:.1f} ms (compute "
+        f"{rl.compute_s * 1e3:.1f}, memory {rl.memory_s * 1e3:.1f}, "
+        f"collective {rl.collective_s * 1e3:.1f}: {rl.dominant}), "
+        f"{ms / 1e3 / rl.step_time_s:.2f}x; without the collectives' "
+        f"{rl.collective_s * 1e3:.1f} ms, "
+        f"{ms / 1e3 / max(rl.compute_s, rl.memory_s):.2f}x the larger of "
+        f"compute and memory; tracked peak {mem['peak_gb']:.3f} GB on the "
+        f"card, {(meta.argument_bytes + meta.peak_bytes) / 1e9:.3f} GB on "
+        f"meta, torch.cuda.max_memory_allocated {alloc_peak / 1e9:.3f} GB; "
+        f"one step under the profiler: {prof_s * 1e3:.1f} ms wall, "
+        f"{launched} kernels, device busy {busy * 1e3:.1f} ms "
+        f"({busy / prof_s:.1%}), {n_ops / (ms / 1e3) / 1e3:.1f}k ops a "
+        f"second unprofiled")
+    for n, (c, m) in diff.items():
+        log(f"  differs: {n}: card [count, FLOPs, bytes] {c}, meta {m}")
+    if diff:
+        raise AssertionError(f"4f rank share: {sorted(diff)} differ")
+    if not finite:
+        raise AssertionError("4f rank share: a result is not finite")
+    log("  every op's count, FLOPs and bytes: equal")
+    del args, counter
+    _free()
+
+
 def _roofline_line(label: str, cfg, counter, step_s: float) -> None:
     """(c): a measured step beside its roofline step time."""
     from repro_torch.analysis import roofline as RL
@@ -2494,9 +2615,10 @@ def _dryrun_table(out: Path, done: list) -> None:
 def phase_dryrun(qwen_step_s: float, ssm_step_s: float) -> None:
     """Phase 4f (no kernel): (a) the sharded serving path on one NCCL
     rank, then, while the dry-run's CLI processes run on the host's other
-    cores, (b) the op counter on the card against meta and (c) 4c's and
-    4d's steps beside their roofline; then (d) the dry-run's per-rank
-    table and (e) kimi's diagnose. Every kernel count stays 0."""
+    cores, (b) the op counter on the card against meta, (c) 4c's and
+    4d's steps beside their roofline and (f) one rank's share of a
+    production tensor-parallel step on the card; then (d) the dry-run's
+    per-rank table and (e) kimi's diagnose. Every kernel count stays 0."""
     import os
     import threading
     import torch
@@ -2530,6 +2652,7 @@ def phase_dryrun(qwen_step_s: float, ssm_step_s: float) -> None:
         ssm = get_config(SSM_ARCH)
         _roofline_line(f"{SSM_ARCH} (4d, the meta count)", ssm,
                        _meta_step_count(ssm, LM_MICRO), ssm_step_s)
+        _rank_share_on_card()
         runner.join()
     finally:
         stop.set()

@@ -17,8 +17,15 @@ Example: llama4's 40 q-heads don't divide the 16-way model axis, so the
 :func:`activation_sharding` marks a region in which the model's
 activations are this rank's rows of the global batch over
 ``batch_axes``; inside it :func:`shard_hint` checks that the reference
-would place those rows there, and the MoE takes its grid forms. The
-differentiable collectives at the end are the ones those forms need.
+would place those rows there, and the MoE takes its grid forms. Given
+the parameters' placements too, the model is handed this rank's blocks:
+each layer gathers its FSDP blocks as it runs (:func:`layer_params`)
+and computes its block along "model" (:func:`tp_grid`,
+:func:`model_block`: tensor parallelism, as GSPMD partitions the
+reference). The differentiable collectives at the end are the ones
+those forms need: Megatron's pair :func:`replicated_over` /
+:func:`sum_over`, :func:`reduce_over`, :func:`gather_block` and
+:func:`block_over`.
 """
 from __future__ import annotations
 
@@ -137,40 +144,9 @@ def local_blocks(grid, full_tree, placements):
                     placements)
 
 
-def _whole(grid, block, placement):
-    """The global tensor of a rank's block (the block itself when the
-    placement shards nothing)."""
-    if grid.axis_size([a for e in placement for a in as_axes(e)]) == 1:
-        return block
-    return grid.gather(block, placement)
-
-
-def gather_tree(grid, blocks, placements):
-    """Every leaf of a tree of rank blocks, whole."""
-    return tree.map(lambda a, p: _whole(grid, a, p), blocks, placements)
-
-
-def gather_except(grid, block, placement, axes):
-    """``block`` gathered along every dim not placed over ``axes``: this
-    rank's rows over the batch axes ``axes``, whole along the others."""
-    out = block
-    for dim, entry in enumerate(placement):
-        e = as_axes(entry)
-        if e and e != axes:
-            out = grid.all_gather(out, e, dim)
-    return out
-
-
-def block_except(grid, full, placement, axes):
-    """This rank's block of ``full`` along every dim not placed over
-    ``axes`` (a view; the inverse of :func:`gather_except`)."""
-    out = full
-    for dim, entry in enumerate(placement):
-        e = as_axes(entry)
-        if e and e != axes and grid.axis_size(e) > 1:
-            n = out.shape[dim] // grid.axis_size(e)
-            out = out.narrow(dim, grid.axis_index(e) * n, n)
-    return out
+def placed_axes(placement) -> tuple:
+    """Every grid axis a placement splits some dim over, in dim order."""
+    return tuple(a for e in placement for a in as_axes(e))
 
 
 # ---------------------------------------------------------------------------
@@ -182,12 +158,16 @@ _CTX = threading.local()
 
 @contextlib.contextmanager
 def activation_sharding(grid, rules: Optional[dict] = None,
-                        batch_axes=()):
+                        batch_axes=(), params=None):
     """While active, activations are this rank's rows of the global batch
     over ``batch_axes`` of ``grid`` (held whole along every other axis);
-    :func:`shard_hint` checks them and the MoE takes its grid forms."""
-    with _entered((grid, rules or DEFAULT_RULES, as_axes(batch_axes))
-                  if grid is not None else None):
+    :func:`shard_hint` checks them and the MoE takes its grid forms.
+    ``params``, the placements of the parameter tree, says that the model
+    is given this rank's blocks of its parameters: it then gathers each
+    layer's blocks as it runs it (:func:`layer_params`), except along
+    "model" where that axis is tensor-parallel (:func:`tp_grid`)."""
+    with _entered((grid, rules or DEFAULT_RULES, as_axes(batch_axes),
+                   params) if grid is not None else None):
         yield
 
 
@@ -224,6 +204,76 @@ def current_batch_axes() -> tuple:
     return () if cfg is None else cfg[2]
 
 
+def param_placements():
+    """The parameters' placements when the model is given rank blocks
+    (:func:`activation_sharding`'s ``params``), else None."""
+    cfg = getattr(_CTX, "cfg", None)
+    return None if cfg is None else cfg[3]
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel compute along "model"
+# ---------------------------------------------------------------------------
+
+
+def tp_grid():
+    """The grid whose "model" axis splits the compute of the enclosing
+    context tensor by tensor (Megatron's tensor parallelism: GSPMD's
+    partitioning of the dims the rules place over "model"), or None: no
+    context, no parameter blocks, a one-rank "model" axis, or one that
+    carries batch rows (``batch_over_model``: there the weights are
+    gathered and the rows computed)."""
+    cfg = getattr(_CTX, "cfg", None)
+    if cfg is None or cfg[3] is None:
+        return None
+    grid, _, batch_axes, _ = cfg
+    if ("model" not in grid.axes or "model" in batch_axes
+            or grid.axis_size("model") == 1):
+        return None
+    return grid
+
+
+def model_block(n_local: int, n_global: int):
+    """Where a dim of ``n_global`` entries that a layer holds ``n_local``
+    of lies: None when it is whole, else (the tensor-parallel grid, the
+    first global index of this rank's block over "model"). A weight's
+    local counts (heads, kv heads, ffn, vocab rows, rnn, ssm heads) are
+    its block's shape; the rules split a dim over "model" only into equal
+    blocks."""
+    if n_local == n_global:
+        return None
+    grid = tp_grid()
+    if grid is None or n_local * grid.axis_size("model") != n_global:
+        raise ValueError(f"a dim of {n_global} held as {n_local} is not a "
+                         "block over a tensor-parallel model axis")
+    return grid, grid.axis_index("model") * n_local
+
+
+def layer_params(blocks, placements):
+    """One layer's (or the embeddings') parameters from this rank's blocks
+    under ``placements``: each dim placed over other axes than the
+    tensor-parallel "model" gathered over its ring (FSDP's "data", and
+    "model" where it carries rows), the blocks along "model" kept. A
+    gather over a batch axis sums the ring's gradients into this rank's
+    block (the rows differ there); over any other axis the compute is the
+    same on the ring and the gradient is the block's share. Outside a
+    context with parameter blocks, ``blocks`` as they are."""
+    cfg = getattr(_CTX, "cfg", None)
+    if cfg is None or cfg[3] is None:
+        return blocks
+    grid, _, batch_axes, _ = cfg
+    keep = ("model",) if tp_grid() is not None else ()
+
+    def one(w, placement):
+        for dim, entry in enumerate(placement):
+            axes = as_axes(entry)
+            if axes and axes != keep and grid.axis_size(axes) > 1:
+                w = gather_block(w, grid, axes, dim,
+                                 summed=set(axes) <= set(batch_axes))
+        return w
+    return tree.map(one, blocks, placements)
+
+
 def shard_hint(x: torch.Tensor, dims: tuple) -> torch.Tensor:
     """Check an activation with logical dims against the reference's
     placement; the identity. Inside a context, the global tensor whose
@@ -232,7 +282,7 @@ def shard_hint(x: torch.Tensor, dims: tuple) -> torch.Tensor:
     cfg = getattr(_CTX, "cfg", None)
     if cfg is None or "batch" not in dims:
         return x
-    grid, rules, batch_axes = cfg
+    grid, rules, batch_axes = cfg[:3]
     i = dims.index("batch")
     shape = list(x.shape)
     shape[i] *= grid.axis_size(batch_axes)
@@ -292,6 +342,41 @@ class _Block(torch.autograd.Function):
         return ctx.grid.all_gather(g, ctx.axes, 0), None, None
 
 
+class _Reduce(torch.autograd.Function):
+    """psum over ``axes`` in the forward and in the backward: a sum whose
+    result each rank uses on its own block (a norm over channels split
+    over the ring)."""
+
+    @staticmethod
+    def forward(ctx, x, grid, axes):
+        ctx.grid, ctx.axes = grid, axes
+        return grid.psum(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.grid.psum(g, ctx.axes), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """The ring's blocks of ``x`` along ``dim`` over ``axes``; the
+    gradient of this rank's block is its slice of the gathered gradient,
+    summed over the ring first when ``summed``."""
+
+    @staticmethod
+    def forward(ctx, x, grid, axes, dim, summed):
+        ctx.grid, ctx.axes, ctx.dim, ctx.summed = grid, axes, dim, summed
+        ctx.n = x.shape[dim]
+        return grid.all_gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        grid = ctx.grid
+        if ctx.summed:
+            g = grid.psum(g, ctx.axes)
+        g = g.narrow(ctx.dim, grid.axis_index(ctx.axes) * ctx.n, ctx.n)
+        return g.contiguous(), None, None, None, None
+
+
 def _alone(grid, axes) -> bool:
     return not grid.distributed or grid.axis_size(axes) == 1
 
@@ -310,3 +395,19 @@ def block_over(w: torch.Tensor, grid, axes) -> torch.Tensor:
     """This rank's dim-0 block of ``w`` over ``axes`` (backward: the whole
     gradient, gathered)."""
     return w if _alone(grid, axes) else _Block.apply(w, grid, axes)
+
+
+def reduce_over(x: torch.Tensor, grid, axes) -> torch.Tensor:
+    """``x`` summed over the ring of ``axes`` (backward: summed too)."""
+    return x if _alone(grid, axes) else _Reduce.apply(x, grid, axes)
+
+
+def gather_block(x: torch.Tensor, grid, axes, dim: int = 0,
+                 summed: bool = True) -> torch.Tensor:
+    """The ring's blocks of ``x`` along ``dim`` over ``axes``, whole
+    (backward: this rank's block of the gradient, summed over the ring
+    when ``summed``: the ring's ranks used the whole on different rows or
+    different parts of it)."""
+    if _alone(grid, axes):
+        return x
+    return _Gather.apply(x, grid, as_axes(axes), dim, summed)

@@ -34,8 +34,9 @@ A :class:`Layout` is a grid's shape and axis names alone, with no ranks:
 the sharding rules resolve on it as on a grid
 (:func:`production_layout`: the reference's 16 x 16 and 2 x 16 x 16).
 :func:`rankless_grid` is one chosen rank of a layout on ``meta`` tensors
-with no process group: its collectives take a real rank's branches and
-only record what they would send (the dry-run's grid). Any grid whose
+(or on a real device) with no process group: its collectives take a real
+rank's branches and only record what they would send (the dry-run's
+grid). Any grid whose
 ``records`` is a list appends its collectives there, as
 :class:`~repro_torch.analysis.collectives.Collective`.
 """
@@ -49,6 +50,7 @@ import tempfile
 
 import torch
 import torch.distributed as dist
+from torch.utils import _python_dispatch
 
 from repro_torch.analysis.collectives import Collective
 
@@ -197,10 +199,11 @@ class DeviceGrid:
         return self._rings[axes]
 
     def _comm(self, kind: str, ranks, operand: torch.Tensor,
-              call) -> None:
+              call, received=()) -> None:
         """Issue one collective of ``operand`` over the ring of ``ranks``
-        (``call`` runs it), recording it when the grid records (an
-        all-gather's result is one operand a rank, the others' one)."""
+        (``call`` runs it, filling ``received``), recording it when the
+        grid records (an all-gather's result is one operand a rank, the
+        others' one)."""
         if self.records is not None:
             nbytes = operand.numel() * operand.element_size()
             n = len(ranks) if kind == "all-gather" else 1
@@ -236,13 +239,16 @@ class DeviceGrid:
         concatenated along ``dim`` in ``axis_index`` order."""
         if not self.distributed or self.axis_size(axes) == 1:
             return x
+        counters["gather"] += 1
+        return self._ring_gather(x, axes, dim)
+
+    def _ring_gather(self, x, axes, dim):
         group, ranks = self._ring(axes)
         x = x.detach().contiguous()
         blocks = [torch.empty_like(x) for _ in ranks]
         self._comm("all-gather", ranks, x,
-                   lambda: dist.all_gather(blocks, x, group=group))
-        counters["gather"] += 1     # blocks in group (sorted) order
-        by_rank = dict(zip(sorted(ranks), blocks))
+                   lambda: dist.all_gather(blocks, x, group=group), blocks)
+        by_rank = dict(zip(sorted(ranks), blocks))   # group (sorted) order
         return torch.cat([by_rank[r] for r in ranks], dim)
 
     def send(self, plane: torch.Tensor, axes, delta: int) -> torch.Tensor:
@@ -265,7 +271,8 @@ class DeviceGrid:
                 req.wait()
 
         ring = [self._ring_rank(axes, i) for i in range(n)]
-        self._comm("collective-permute", ring, out_plane, exchange)
+        self._comm("collective-permute", ring, out_plane, exchange,
+                   (in_plane,))
         counters["send"] += 1
         return in_plane
 
@@ -293,22 +300,27 @@ class DeviceGrid:
 
     def gather(self, local: torch.Tensor, placement, dst=None):
         """The global tensor from every rank's block: on every rank
-        (``dst=None``), or on rank ``dst`` only (None elsewhere)."""
+        (``dst=None``: each dim gathered over the ring of its own axes, one
+        all-gather a split dim), or on rank ``dst`` only (None elsewhere;
+        one gather over the whole grid)."""
         if not self.distributed:
             return local
         local = local.contiguous()
         counters["gather"] += 1
         if dst is None:
-            blocks = [torch.empty_like(local) for _ in range(self.size)]
-            self._comm("all-gather", range(self.size), local,
-                       lambda: dist.all_gather(blocks, local))
-        else:   # priced as the all-gather it completes on rank dst
-            blocks = ([torch.empty_like(local) for _ in range(self.size)]
-                      if self.rank == dst else None)
-            self._comm("all-gather", range(self.size), local,
-                       lambda: dist.gather(local, blocks, dst=dst))
-            if self.rank != dst:
-                return None
+            out = local
+            for dim, axes in enumerate(placement):
+                if self.axis_size(axes) > 1:
+                    out = self._ring_gather(out, axes, dim)
+            return local.clone() if out is local else out
+        # priced as the all-gather it completes on rank dst
+        blocks = ([torch.empty_like(local) for _ in range(self.size)]
+                  if self.rank == dst else None)
+        self._comm("all-gather", range(self.size), local,
+                   lambda: dist.gather(local, blocks, dst=dst),
+                   blocks or ())
+        if self.rank != dst:
+            return None
         full = local.new_empty(self.global_shape(local.shape, placement))
         for r, blk in enumerate(blocks):
             self._block_view(full, placement, self.coords_of(r)).copy_(blk)
@@ -327,19 +339,28 @@ class _RanklessGrid(DeviceGrid):
                 r for r in self._ring_ranks(axes) if self.rank in r))
         return self._rings[axes]
 
-    def _comm(self, kind, ranks, operand, call) -> None:
+    def _comm(self, kind, ranks, operand, call, received=()) -> None:
         super()._comm(kind, ranks, operand, lambda: None)
+        if received and not operand.is_meta:
+            # as if every rank held this one's operand (finite values on
+            # a real device); outside any counting mode, so that a real
+            # device's count is the ``meta`` one
+            with _python_dispatch._disable_current_modes():
+                for buf in received:
+                    buf.copy_(operand)
 
 
-def rankless_grid(layout, rank: int = 0) -> DeviceGrid:
+def rankless_grid(layout, rank: int = 0, device="meta") -> DeviceGrid:
     """Rank ``rank`` of ``layout`` (a :class:`Layout` or grid) as a grid
-    that needs no process group: its tensors live on ``meta`` (shapes
-    only) and its collectives are recorded in ``grid.records`` without
-    being sent."""
+    that needs no process group: its tensors live on ``device`` (by
+    default ``meta``: shapes only) and its collectives are recorded in
+    ``grid.records`` without being sent (on a real device a received
+    block is a copy of this rank's own, a reduction this rank's operand:
+    the values are finite, not a real rank's)."""
     shape, axes = tuple(layout.shape), tuple(layout.axes)
     if not 0 <= rank < math.prod(shape):
         raise ValueError(f"rank {rank} is not on a {shape} grid")
-    return _RanklessGrid(shape, axes, rank, torch.device("meta"),
+    return _RanklessGrid(shape, axes, rank, torch.device(device),
                          distributed=True, records=[])
 
 

@@ -6,8 +6,9 @@ a process grid with the sharding engine (the port of
 
 ``--mesh`` names the grid: axes (data, model) or (pod, data, model). Each
 rank holds the blocks of the state the reference's sharding rules put on
-it (``distributed.sharding.rules_for``) and trains on its rows of each
-microbatch (``train.train_step.make_sharded_train_step``). ``--devices N``
+it (``distributed.sharding.rules_for``), trains on its rows of each
+microbatch and computes its block of every layer along "model"
+(``train.train_step.make_sharded_train_step``). ``--devices N``
 spawns N gloo ranks of CPU tensors (with ``--device cpu``); on the card
 ``--mesh 1,1`` starts a one-rank NCCL group. A larger grid needs as many
 ranks in an initialised process group; nothing falls back to gloo or the

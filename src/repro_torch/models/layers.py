@@ -9,6 +9,14 @@ distributions as the reference (not the same numbers). Beside each
 ``init_*`` a ``*_specs(cfg)`` gives the reference's logical-axis tree for
 the same parameters (``distributed.sharding`` resolves it to placements).
 
+Under tensor parallelism (``distributed.sharding.tp_grid``) a layer is
+given this rank's blocks of its weights along "model" and computes its
+share, as GSPMD partitions the reference: the attention its heads, the
+MLP its ffn columns, the embeddings their vocab rows. Each block's shape
+is its local count (``sharding.model_block``); the input enters through
+``sharding.replicated_over`` (its gradient summed over the ring) and a
+row-parallel output leaves through one ``sharding.sum_over``.
+
 Products whose operands are bf16 but whose result the reference takes in
 f32 (``preferred_element_type=jnp.float32``: the attention scores and
 P @ V) go through :func:`matmul_f32`: on the card a bf16-in, f32-out
@@ -25,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.lattice import torch_dtype
+from repro_torch.distributed import sharding as SH
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -426,6 +435,79 @@ def _out(o, w):
     return o.flatten(-2) @ w.reshape(h * k, d)
 
 
+class _AttnShare:
+    """How this rank computes an attention layer. ``grid`` None: whole
+    heads (one rank, heads that do not divide the model axis, or a
+    fallback), the layer's own weights. Else the rank's q heads
+    ``[h_lo, h_lo + h)`` over "model" and ``p`` the weights it computes
+    with: wq, bq and wo its heads; wk, wv, bk and bv its kv heads, or,
+    when the kv heads are whole (they do not divide the axis: GQA with
+    more ranks than kv heads), the one kv head its q heads read
+    (``h_lo // G``, shared by ``spread`` ranks), cut from the whole
+    weights; weights the ring holds whole enter through ``replicated_over``
+    (their gradients summed over the ring)."""
+
+    def __init__(self, p, cfg):
+        self.p, self.grid, self.spread = p, None, 0
+        h = p["wq"].shape[-2]
+        blk = SH.model_block(h, cfg.n_heads)
+        if blk is None:
+            return
+        grid, self.h_lo = blk
+        g = cfg.n_heads // cfg.n_kv_heads
+        if SH.model_block(p["wk"].shape[-2], cfg.n_kv_heads) is None:
+            if g % h:
+                # this rank's q heads read kv heads unevenly: the whole
+                # heads, computed alike on every rank of the ring
+                self.p = {k: (SH.gather_block(w, grid, "model", w.dim() - 3
+                                              if k == "wo" else w.dim() - 2,
+                                              summed=False)
+                              if k in ("wq", "bq", "wo") else w)
+                          for k, w in p.items()}
+                return
+            self.spread = g // h
+        self.grid = grid
+        out = dict(p)
+        for name in ("wk", "wv", "bk", "bv", "q_norm", "k_norm"):
+            if name not in p:
+                continue
+            if self.spread or name in ("q_norm", "k_norm"):
+                out[name] = SH.replicated_over(p[name], grid, "model")
+            if self.spread and name[0] in "wb":
+                out[name] = out[name].narrow(-2, self.h_lo // g, 1)
+        self.p = out
+
+    def enter(self, x):
+        """The layer's input as this rank computes with it."""
+        return x if self.grid is None else SH.replicated_over(x, self.grid,
+                                                              "model")
+
+    def out(self, o):
+        """The output projection of this rank's heads, summed over the
+        ring."""
+        y = _out(o, self.p["wo"])
+        return y if self.grid is None else SH.sum_over(y, self.grid,
+                                                       "model")
+
+    def whole_kv(self, t, dim: int):
+        """The whole kv heads of a [..., 1 kv head, ...] piece along
+        ``dim`` (kv heads cut from whole weights): the ring's pieces
+        gathered, one of each ``spread`` ranks that share a head."""
+        if not self.spread:
+            return t
+        gathered = self.grid.all_gather(t, "model", dim)
+        idx = torch.arange(0, gathered.shape[dim], self.spread,
+                           device=t.device)
+        return gathered.index_select(dim, idx)
+
+    def own_kv(self, cache, dim: int, cfg):
+        """The kv heads of a whole cache this rank's q heads read."""
+        if not self.spread:
+            return cache
+        g = cfg.n_heads // cfg.n_kv_heads
+        return cache.narrow(dim, self.h_lo // g, 1)
+
+
 def _qkv(p, cfg, x, cos, sin):
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if cfg.attn_bias:
@@ -444,9 +526,10 @@ def _qkv(p, cfg, x, cos, sin):
 def attention_forward(p: dict, cfg, x: torch.Tensor, cos, sin,
                       window: int = 0) -> torch.Tensor:
     """Training/prefill attention over [B, S, d]."""
-    q, k, v = _qkv(p, cfg, x, cos, sin)
+    share = _AttnShare(p, cfg)
+    q, k, v = _qkv(share.p, cfg, share.enter(x), cos, sin)
     o = flash_attention(q, k, v, causal=True, window=window)
-    return _out(o, p["wo"])
+    return share.out(o)
 
 
 def attention_prefill(p: dict, cfg, x: torch.Tensor, cos, sin,
@@ -459,8 +542,10 @@ def attention_prefill(p: dict, cfg, x: torch.Tensor, cos, sin,
     p % window, the slot decode's ``pos % window`` writes rely on.
     """
     s = x.shape[1]
-    q, k, v = _qkv(p, cfg, x, cos, sin)
+    share = _AttnShare(p, cfg)
+    q, k, v = _qkv(share.p, cfg, share.enter(x), cos, sin)
     o = flash_attention(q, k, v, causal=True, window=window)
+    k, v = share.whole_kv(k, 2), share.whole_kv(v, 2)
     if window:
         if s >= window:
             shift = s % window      # roll right: slot of the oldest kept key
@@ -474,20 +559,27 @@ def attention_prefill(p: dict, cfg, x: torch.Tensor, cos, sin,
         v = F.pad(v, (0, 0, 0, 0, 0, max_len - s))
     if cfg.cache_layout == "bkth":
         k, v = k.transpose(1, 2), v.transpose(1, 2)
-    return _out(o, p["wo"]), (k.contiguous(), v.contiguous())
+    return share.out(o), (k.contiguous(), v.contiguous())
 
 
 def attention_decode(p: dict, cfg, x: torch.Tensor, cache: tuple, pos: int,
                      cos, sin, window: int = 0):
-    """x: [B, 1, d]; cache: (k, v) in cfg.cache_layout, updated in place.
-    Returns (out, cache)."""
-    q, k_new, v_new = _qkv(p, cfg, x, cos, sin)
+    """x: [B, 1, d]; cache: (k, v) in cfg.cache_layout, updated in place
+    (this rank's kv heads, or all of them where the rules keep the cache
+    whole). Returns (out, cache)."""
+    share = _AttnShare(p, cfg)
+    q, k_new, v_new = _qkv(share.p, cfg, share.enter(x), cos, sin)
     k_cache, v_cache = cache
     lay = cfg.cache_layout
-    k_cache = cache_update(k_cache, k_new, pos, window, lay)
-    v_cache = cache_update(v_cache, v_new, pos, window, lay)
-    o = decode_attention(q, k_cache, v_cache, pos, window=window, layout=lay)
-    return _out(o, p["wo"]), (k_cache, v_cache)
+    k_cache = cache_update(k_cache, share.whole_kv(k_new, 2), pos, window,
+                           lay)
+    v_cache = cache_update(v_cache, share.whole_kv(v_new, 2), pos, window,
+                           lay)
+    kv_dim = 1 if lay == "bkth" else 2
+    o = decode_attention(q, share.own_kv(k_cache, kv_dim, cfg),
+                         share.own_kv(v_cache, kv_dim, cfg), pos,
+                         window=window, layout=lay)
+    return share.out(o), (k_cache, v_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -513,8 +605,15 @@ def mlp_specs(cfg) -> dict:
     return specs
 
 
-def mlp_forward(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
+def mlp_forward(p: dict, cfg, x: torch.Tensor, d_ff: int = 0
+                ) -> torch.Tensor:
+    """The MLP of ``d_ff`` (default ``cfg.d_ff``) columns; wi and wg
+    column-parallel, wo row-parallel when they are blocks over "model"."""
     act = cfg.activation
+    blk = SH.model_block(p["wi"].shape[-1], d_ff or cfg.d_ff)
+    grid = None if blk is None else blk[0]
+    if grid is not None:
+        x = SH.replicated_over(x, grid, "model")
     hi = x @ p["wi"]
     if act == "swiglu":
         h = F.silu(x @ p["wg"]) * hi
@@ -527,7 +626,8 @@ def mlp_forward(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(hi, approximate="tanh")
     else:
         raise ValueError(act)
-    return h @ p["wo"]
+    y = h @ p["wo"]
+    return y if grid is None else SH.sum_over(y, grid, "model")
 
 
 # ---------------------------------------------------------------------------
@@ -553,7 +653,26 @@ def embed_tokens(p: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
     """tokens: [B, S] (or [B, S, n_codebooks] for audio). Returns
     [B, S, d]. ``F.embedding``, whose backward on the card sums each
     row's gradients in a fixed order (a resumed run repeats a straight
-    one bitwise)."""
+    one bitwise). With this rank's block of the vocab rows over "model",
+    the ids outside it look up zeros and the ring's lookups are summed."""
+    blk = SH.model_block(p["tok"].shape[1], cfg.padded_vocab)
+    if blk is not None:
+        grid, lo = blk
+        n = p["tok"].shape[1]
+
+        def lookup(ids, table):
+            local = ids - lo
+            inside = (local >= 0) & (local < n)
+            e = F.embedding(torch.where(inside, local, 0), table)
+            return torch.where(inside[..., None], e, 0)
+
+        if cfg.n_codebooks:
+            x = functools.reduce(torch.add, [
+                lookup(tokens[..., i], p["tok"][i])
+                for i in range(cfg.n_codebooks)])
+        else:
+            x = lookup(tokens, p["tok"][0])
+        return SH.sum_over(x, grid, "model")
     if cfg.n_codebooks:
         # sum of per-codebook embeddings (MusicGen-style)
         embs = [F.embedding(tokens[..., i], p["tok"][i])
@@ -564,7 +683,12 @@ def embed_tokens(p: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     """Returns logits [B, S, n_emb * padded_vocab] in f32 (the product in
-    the model's dtype, then widened, as the reference)."""
+    the model's dtype, then widened, as the reference); with this rank's
+    block of ``out``'s columns over "model", that block of the logits."""
+    blk = SH.model_block(p["out"].shape[1],
+                         max(cfg.n_codebooks, 1) * cfg.padded_vocab)
+    if blk is not None:
+        x = SH.replicated_over(x, blk[0], "model")
     logits = (x @ p["out"]).float()
     if cfg.logit_softcap:
         c = cfg.logit_softcap

@@ -11,6 +11,17 @@ The reference's multi-operand einsums become explicit batched matmuls
 whose intermediates stay at the size of their operands: the largest
 tensor is one ``[B, nc, nh, Q, Q]`` f32 decay matrix per layer.
 :func:`ssd_reference` is the sequential oracle of the tests.
+
+Under tensor parallelism (the heads split over "model") a rank computes
+its heads: its columns of z, x and dt, all of B and C (shared by every
+head), its channels of the conv, the gated norm (its sum of squares
+summed over the ring) and its rows of ``out_proj`` (one ``sum_over``).
+``in_proj``'s columns concatenate z, x, B, C and dt, so a block of them
+is no block of each part: the rank gathers the layer's whole ``in_proj``
+and conv weights over the ring and takes its columns of each part (their
+gradients summed over the ring into its block). The conv state is held as
+the rules split it, a block of the x|B|C columns: a decode step gathers
+the window and writes its block of the next one back.
 """
 from __future__ import annotations
 
@@ -18,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.lattice import torch_dtype
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as nn
 
 
@@ -60,8 +72,10 @@ def mamba2_specs(cfg) -> dict:
     }
 
 
-def _split_proj(cfg, zxbcdt):
-    d_inner, _, _ = dims(cfg)
+def _split_proj(cfg, zxbcdt, d_inner=None):
+    """(z, x, B, C, dt) of the projection; ``d_inner`` the channels of z
+    and x it holds (default all)."""
+    d_inner = d_inner or dims(cfg)[0]
     ns = cfg.ssm_state
     z = zxbcdt[..., :d_inner]
     x = zxbcdt[..., d_inner:2 * d_inner]
@@ -69,6 +83,15 @@ def _split_proj(cfg, zxbcdt):
     c = zxbcdt[..., 2 * d_inner + ns:2 * d_inner + 2 * ns]
     dt = zxbcdt[..., 2 * d_inner + 2 * ns:]
     return z, x, b, c, dt
+
+
+def conv_tail(raw: torch.Tensor, w: int) -> torch.Tensor:
+    """Last ``w`` pre-conv inputs (a copy), zero-padded at the front if
+    s < w."""
+    s = raw.shape[1]
+    if s >= w:
+        return raw[:, -w:].clone()
+    return F.pad(raw, (0, 0, w - s, 0))
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -195,12 +218,111 @@ def _outer(dt, x, b):
     return (dt[..., None] * x)[..., None] * b[:, None, None, :]
 
 
+class _Share:
+    """How this rank computes a mixer: ``p`` the weights it computes with,
+    ``d_inner`` / ``nheads`` its channels and heads. ``grid`` None: the
+    whole heads (one rank, or heads that do not divide the model axis:
+    then any block is gathered and every rank computes alike); else its
+    heads ``[h_lo, h_lo + nheads)`` over "model" (see the module's
+    docstring). ``conv_grid``: the conv state is this rank's block of the
+    x|B|C columns, from ``conv_lo``."""
+
+    def __init__(self, p, cfg):
+        d_inner, nh, conv_dim = dims(cfg)
+        ns, hd = cfg.ssm_state, cfg.ssm_head_dim
+        self.full_inner, self.ns = d_inner, ns
+        self.grid, self.d_inner, self.nheads = None, d_inner, nh
+        blk = SH.model_block(p["conv_w"].shape[-1], conv_dim)
+        self.conv_grid, self.conv_lo = blk or (None, 0)
+        total = {"in_proj": (1, 2 * d_inner + 2 * ns + nh),
+                 "conv_w": (1, conv_dim), "conv_b": (0, conv_dim),
+                 "norm": (0, d_inner), "out_proj": (0, d_inner)}
+        q = dict(p)
+        blk = SH.model_block(p["a_log"].shape[-1], nh)
+        if blk is None:
+            for name, (dim, n) in total.items():
+                b = SH.model_block(q[name].shape[dim], n)
+                if b is not None:
+                    q[name] = SH.gather_block(q[name], b[0], "model", dim,
+                                              summed=False)
+            self.p = q
+            return
+        self.grid, h_lo = blk
+        self.nheads = p["a_log"].shape[-1]
+        self.d_inner = di = self.nheads * hd
+        self.x_lo = x0 = h_lo * hd
+
+        def whole(name):
+            dim, n = total[name]
+            if SH.model_block(q[name].shape[dim], n) is None:
+                return SH.replicated_over(q[name], self.grid, "model")
+            return SH.gather_block(q[name], self.grid, "model", dim)
+
+        w = whole("in_proj")
+        dt0 = 2 * d_inner + 2 * ns + h_lo
+        q["in_proj"] = torch.cat(
+            [w[:, x0:x0 + di], w[:, d_inner + x0:d_inner + x0 + di],
+             w[:, 2 * d_inner:2 * d_inner + 2 * ns],
+             w[:, dt0:dt0 + self.nheads]], -1)
+        for name in ("conv_w", "conv_b"):
+            q[name] = self.own_columns(whole(name))
+        self.p = q
+
+    def own_columns(self, t):
+        """This rank's x channels and all of B and C of x|B|C columns."""
+        if self.grid is None:
+            return t
+        x0, d0 = self.x_lo, self.full_inner
+        return torch.cat([t[..., x0:x0 + self.d_inner], t[..., d0:]], -1)
+
+    def enter(self, x):
+        return x if self.grid is None else SH.replicated_over(x, self.grid,
+                                                              "model")
+
+    def out(self, y):
+        return y if self.grid is None else SH.sum_over(y, self.grid,
+                                                       "model")
+
+    def norm(self, y, scale, eps):
+        """The gated RMS norm over all ``d_inner`` channels."""
+        if self.grid is None:
+            return nn.rms_norm(y, scale, eps)
+        xf = y.float()
+        ss = SH.reduce_over((xf * xf).sum(-1, keepdim=True), self.grid,
+                            "model")
+        out = xf * torch.rsqrt(ss / self.full_inner + eps) * scale.float()
+        return out.to(y.dtype)
+
+    def whole_raw(self, raw):
+        """x|B|C pre-conv columns of every channel from this rank's."""
+        if self.grid is None:
+            return raw
+        di = self.d_inner
+        x = self.grid.all_gather(raw[..., :di], "model", raw.dim() - 1)
+        return torch.cat([x, raw[..., di:]], -1)
+
+    def stored(self, window):
+        """A whole conv window as the state holds it."""
+        if self.conv_grid is None:
+            return window
+        n = window.shape[-1] // self.conv_grid.axis_size("model")
+        return window[..., self.conv_lo:self.conv_lo + n]
+
+    def whole_state(self, conv):
+        """The whole conv window of the state's block."""
+        if self.conv_grid is None:
+            return conv
+        return self.conv_grid.all_gather(conv, "model", conv.dim() - 1)
+
+
 def _mixer(p: dict, cfg, xin: torch.Tensor):
     """The full mixer over [B, S, d]: (y [B, S, d], the raw pre-conv
-    x|B|C inputs, the final SSM state)."""
-    d_inner, nheads, _ = dims(cfg)
+    x|B|C inputs, the final SSM state, the rank's share), the latter of
+    this rank's channels and heads."""
+    sh = _Share(p, cfg)
+    p, d_inner, nheads = sh.p, sh.d_inner, sh.nheads
     ns = cfg.ssm_state
-    z, x, b, c, dt = _split_proj(cfg, xin @ p["in_proj"])
+    z, x, b, c, dt = _split_proj(cfg, sh.enter(xin) @ p["in_proj"], d_inner)
     xbc_raw = torch.cat([x, b, c], -1)
     xbc = causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
     x, b, c = (xbc[..., :d_inner], xbc[..., d_inner:d_inner + ns],
@@ -212,13 +334,21 @@ def _mixer(p: dict, cfg, xin: torch.Tensor):
     y, h_final = ssd_chunked(xh, dt, a, b, c, min(cfg.ssm_chunk, s))
     y = y + p["d_skip"][:, None] * xh.float()
     y = y.reshape(bsz, s, d_inner).to(xin.dtype)
-    y = nn.rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"], xbc_raw, h_final
+    y = sh.norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    return sh.out(y @ p["out_proj"]), xbc_raw, h_final, sh
 
 
 def mamba2_forward(p: dict, cfg, xin: torch.Tensor) -> torch.Tensor:
     """Full mixer over [B, S, d] (train / prefill)."""
     return _mixer(p, cfg, xin)[0]
+
+
+def mamba2_prefill(p: dict, cfg, xin: torch.Tensor):
+    """The mixer that also returns the final (conv, ssm) state, each as
+    the rules place it."""
+    y, xbc_raw, h_final, sh = _mixer(p, cfg, xin)
+    tail = sh.whole_raw(conv_tail(xbc_raw, cfg.conv_width - 1))
+    return y, {"conv": sh.stored(tail).contiguous(), "ssm": h_final}
 
 
 def init_mamba2_state(cfg, batch: int, device="cpu") -> dict:
@@ -248,11 +378,17 @@ def conv_step(state_conv, new, w, bias):
 def mamba2_decode(p: dict, cfg, state: dict, xin: torch.Tensor):
     """Single-token step. xin: [B, 1, d]. Returns (y [B, 1, d], state),
     the state's ``conv`` and ``ssm`` updated in place."""
-    d_inner, nheads, _ = dims(cfg)
+    sh = _Share(p, cfg)
+    p, d_inner, nheads = sh.p, sh.d_inner, sh.nheads
     ns = cfg.ssm_state
-    z, x, b, c, dt = _split_proj(cfg, xin[:, 0] @ p["in_proj"])
-    conv_out, window = conv_step(state["conv"], torch.cat([x, b, c], -1),
-                                 p["conv_w"], p["conv_b"])
+    z, x, b, c, dt = _split_proj(cfg, xin[:, 0] @ p["in_proj"], d_inner)
+    raw = torch.cat([x, b, c], -1)
+    whole = sh.whole_state(state["conv"])
+    conv_out, window = conv_step(sh.own_columns(whole), raw, p["conv_w"],
+                                 p["conv_b"])
+    if sh.grid is not None or sh.conv_grid is not None:
+        window = sh.stored(torch.cat([whole[:, 1:],
+                                      sh.whole_raw(raw)[:, None]], 1))
     x, b, c = (conv_out[..., :d_inner], conv_out[..., d_inner:d_inner + ns],
                conv_out[..., d_inner + ns:])
     dt = F.softplus(dt.float() + p["dt_bias"])                  # [B, nh]
@@ -263,7 +399,7 @@ def mamba2_decode(p: dict, cfg, state: dict, xin: torch.Tensor):
     y = (h @ c.float()[:, None, :, None])[..., 0]                # [B, nh, hd]
     y = y + p["d_skip"][:, None] * xt
     y = y.reshape(-1, 1, d_inner).to(xin.dtype)
-    y = nn.rms_norm(y * F.silu(z[:, None]), p["norm"], cfg.norm_eps)
+    y = sh.norm(y * F.silu(z[:, None]), p["norm"], cfg.norm_eps)
     state["conv"].copy_(window)
     state["ssm"].copy_(h)
-    return y @ p["out_proj"], state
+    return sh.out(y @ p["out_proj"]), state

@@ -8,14 +8,16 @@ serving functions on a process grid, in the pattern of
 ``train.train_step.make_sharded_train_step``: the counterpart of the
 reference's jitted ``make_prefill`` / ``make_decode_step`` with sharded
 parameters, batch and decode states (``repro.launch.dryrun_lib``). A rank
-holds its blocks of the parameters under the resolved placements and
-gathers them whole, takes its rows of the batch over the batch axes, and
-runs the body inside ``distributed.sharding.activation_sharding`` (the
-MoE takes its grid forms there). Decode states are this rank's blocks
-under :func:`decode_state_placements`: its rows over the batch axes, and
-along "model" where that splits them, gathered there for the step and
-written back into the rank's blocks in place. On a one-rank grid each is
-the unsharded function, bitwise."""
+holds its blocks of the parameters under the resolved placements, takes
+its rows of the batch over the batch axes, and runs the body inside
+``distributed.sharding.activation_sharding`` with those placements: each
+layer gathers its FSDP blocks as it runs and computes its share along
+"model" (tensor parallelism; the MoE takes its grid forms there). Decode
+states are this rank's blocks under :func:`decode_state_placements`: its
+rows over the batch axes, and its kv heads, channels or heads along
+"model" where that splits them, which its layers read and update in place.
+The last logits are gathered over the vocab once, for the caller. On a
+one-rank grid each is the unsharded function, bitwise."""
 from __future__ import annotations
 
 import functools
@@ -43,9 +45,51 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return torch.mean(logz - gold)
 
 
+def _cross_entropy_block(logits, labels, vocab_size: int, lo: int, grid):
+    """:func:`cross_entropy` of the padded vocab's columns ``[lo, lo + n)``
+    held by this rank (``n`` may be 0), the ring of "model" holding the
+    rest: the rows' maxima by a pmax (a shift the result does not depend
+    on), the exp-sums and the label's logit (from the rank holding it)
+    by one psum."""
+    n = logits.shape[-1]
+    cols = lo + torch.arange(n, device=logits.device)
+    logits = torch.where(cols >= vocab_size, -1e30, logits)
+    m = (logits.amax(-1) if n else
+         torch.full(labels.shape, -1e30, device=logits.device))
+    m = grid.pmax(m, "model")
+    local = labels.long() - lo
+    inside = (local >= 0) & (local < n)
+    gold = (torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])
+            [..., 0] if n else torch.zeros_like(m))
+    sums = torch.stack([torch.exp(logits - m[..., None]).sum(-1),
+                        torch.where(inside, gold, 0)])
+    sums = SH.sum_over(sums, grid, "model")
+    return torch.mean(m + torch.log(sums[0]) - sums[1])
+
+
 def loss_fn(params: dict, cfg, batch: dict) -> torch.Tensor:
+    """Mean CE of the logits (of each codebook, then their mean). Where the
+    logits are this rank's block of the vocab over "model", each codebook
+    takes the columns of the block that fall in it."""
     logits = transformer.forward(params, cfg, batch)
     labels = batch["labels"]
+    v = cfg.padded_vocab
+    n_emb = max(cfg.n_codebooks, 1)
+    blk = SH.model_block(logits.shape[-1], n_emb * v)
+    if blk is not None:
+        grid, lo = blk
+        hi = lo + logits.shape[-1]
+        losses = []
+        for i in range(n_emb):
+            a, b = max(lo, i * v), min(hi, (i + 1) * v)
+            if b <= a:      # no column of codebook i on this rank
+                a = b = lo
+            lab = labels[..., i] if cfg.n_codebooks else labels
+            losses.append(_cross_entropy_block(
+                logits[..., a - lo:b - lo], lab, cfg.vocab_size, a - i * v,
+                grid))
+        return (torch.mean(torch.stack(losses)) if cfg.n_codebooks
+                else losses[0])
     if cfg.n_codebooks:
         b, s, _ = logits.shape
         logits = logits.reshape(b, s, cfg.n_codebooks, cfg.padded_vocab)
@@ -184,15 +228,21 @@ def make_sharded_prefill(cfg, grid, placements, batch_axes,
     batch_axes = SH.as_axes(batch_axes)
 
     def fn(blocks, batch):
-        params = SH.gather_tree(grid, blocks, placements)
-        with SH.activation_sharding(grid, rules, batch_axes):
-            logits, states = prefill(params, batch)
+        with SH.activation_sharding(grid, rules, batch_axes, placements):
+            logits, states = prefill(blocks, batch)
+            logits = _whole_vocab(cfg, logits)
         _check_rows(cfg, states, state_placements, batch_axes)
-        return logits, tree.map(
-            lambda s, p: SH.block_except(grid, s, p, batch_axes).contiguous(),
-            states, state_placements)
+        return logits, states
 
     return fn
+
+
+def _whole_vocab(cfg, logits):
+    """The logits over the whole vocab, gathered over "model" where they
+    are this rank's block of it (once, for the caller)."""
+    blk = SH.model_block(logits.shape[-1],
+                         max(cfg.n_codebooks, 1) * cfg.padded_vocab)
+    return logits if blk is None else blk[0].all_gather(logits, "model", -1)
 
 
 def make_sharded_decode_step(cfg, grid, placements, batch_axes,
@@ -207,19 +257,8 @@ def make_sharded_decode_step(cfg, grid, placements, batch_axes,
 
     def fn(blocks, states, batch):
         _check_rows(cfg, states, state_placements, batch_axes)
-        params = SH.gather_tree(grid, blocks, placements)
-        full = tree.map(lambda s, p: SH.gather_except(grid, s, p, batch_axes),
-                        states, state_placements)
-        with SH.activation_sharding(grid, rules, batch_axes):
-            logits, new = decode(params, full, batch)
-
-        def write_back(blk, s, p):
-            if s is not blk:
-                blk.copy_(SH.block_except(grid, s, p, batch_axes))
-            return blk
-
-        with torch.no_grad():
-            return logits, tree.map(write_back, states, new,
-                                    state_placements)
+        with SH.activation_sharding(grid, rules, batch_axes, placements):
+            logits, states = decode(blocks, states, batch)
+            return _whole_vocab(cfg, logits), states
 
     return fn

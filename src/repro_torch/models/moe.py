@@ -189,14 +189,18 @@ def moe_forward_ep(p: dict, cfg, x: torch.Tensor, grid):
     if e_par > 1:
         # the dispatch's tokens and logits are replicated over "model" and
         # each rank's share of their cotangents partial; the weights are
-        # this rank's experts
+        # this rank's experts (given as its blocks under tensor
+        # parallelism, else cut from the whole weights)
         e_lo = grid.axis_index("model") * e_local
         xd = SH.replicated_over(xf, grid, "model")
         ld = SH.replicated_over(logits, grid, "model")
-        wi, wo = (SH.block_over(p[k], grid, "model") for k in ("wi", "wo"))
-        wg = None if wg is None else SH.block_over(wg, grid, "model")
+        mine = SH.model_block(p["wi"].shape[0], cfg.n_experts) is not None
+        wi, wo, wg = ((w if w is None or mine else
+                       SH.block_over(w, grid, "model"))
+                      for w in (p["wi"], p["wo"], wg))
     else:
-        xd, ld, wi, wo = xf, logits, p["wi"], p["wo"]
+        xd, ld = xf, logits
+        wi, wg, wo = _whole_experts(p, cfg)
     y, counts = _dispatch_combine(cfg, xd, ld, wi, wg, wo, e_lo, e_local,
                                   cap)
     if e_par > 1:
@@ -211,8 +215,31 @@ def moe_forward_ep(p: dict, cfg, x: torch.Tensor, grid):
         aux = SH.sum_over(aux, grid, batch_axes) / n
     y = y.reshape(x.shape)
     if cfg.n_shared_experts:
-        y = y + nn.mlp_forward(p["shared"], cfg, xf).reshape(x.shape)
+        y = y + _shared(p, cfg, xf).reshape(x.shape)
     return y, aux
+
+
+def _shared(p, cfg, x):
+    """The shared experts' MLP (tensor-parallel over its ffn columns like
+    any MLP)."""
+    return nn.mlp_forward(p["shared"], cfg, x,
+                          cfg.moe_d_ff * cfg.n_shared_experts)
+
+
+def _whole_experts(p, cfg):
+    """(wi, wg, wo) whole: gathered over "model" where they are this
+    rank's block of the experts or of their ffn columns (every rank of the
+    ring then computes the same dispatch, so each keeps its block's share
+    of their gradient)."""
+    out = []
+    for name, ffn_dim in (("wi", 2), ("wg", 2), ("wo", 1)):
+        w = p.get(name)
+        for dim, n in ((0, cfg.n_experts), (ffn_dim, cfg.moe_d_ff)):
+            blk = None if w is None else SH.model_block(w.shape[dim], n)
+            if blk is not None:
+                w = SH.gather_block(w, blk[0], "model", dim, summed=False)
+        out.append(w)
+    return tuple(out)
 
 
 def moe_forward(p: dict, cfg, x: torch.Tensor):
@@ -262,11 +289,12 @@ def moe_forward_gspmd(p: dict, cfg, x: torch.Tensor):
         # the router's gradient from this rank's tokens only
         logits = torch.cat([logits[:rows.start].detach(), logits[rows],
                             logits[rows.stop:].detach()])
-    y, counts = _dispatch_combine(cfg, xf, logits, p["wi"], p.get("wg"),
-                                  p["wo"], 0, e, capacity(cfg, t))
+    wi, wg, wo = _whole_experts(p, cfg)
+    y, counts = _dispatch_combine(cfg, xf, logits, wi, wg, wo, 0, e,
+                                  capacity(cfg, t))
     y, xl = y[rows], xf[rows]
     if cfg.n_shared_experts:
-        y = y + nn.mlp_forward(p["shared"], cfg, xl)
+        y = y + _shared(p, cfg, xl)
     # load-balance aux (Switch-style): E * sum_e f_e * p_e
     probs = torch.softmax(logits, dim=-1)
     frac = counts.float() / (t * cfg.experts_per_token)
@@ -288,5 +316,5 @@ def moe_forward_dense(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
         sel = all_out[gate_idx[:, j], rows]                    # [T, d]
         y = y + weights[:, j:j + 1].to(xf.dtype) * sel
     if cfg.n_shared_experts:
-        y = y + nn.mlp_forward(p["shared"], cfg, xf)
+        y = y + _shared(p, cfg, xf)
     return y.reshape(b, s, d)

@@ -8,6 +8,12 @@ h_t = a_t h_{t-1} + b_t with a log-depth scan (:func:`associative_scan`,
 the odd/even recursion of ``jax.lax.associative_scan``, so the f32
 products associate as the reference's do); decode is the O(1) step and
 updates its state in place.
+
+Under tensor parallelism every weight but ``out`` is per channel over
+"rnn" and a rank holds its block of the channels: ``wx``, ``wy``, ``w_r``
+and ``w_i`` are column-parallel, the conv, the gates and the scan run on
+its channels, and ``out`` is row-parallel (one ``sum_over``). The gates
+read every channel of the conv's output, gathered over the ring.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.lattice import torch_dtype
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as nn
 from repro_torch.models.mamba2 import causal_conv, conv_step
 
@@ -55,11 +62,14 @@ def rglru_specs(cfg) -> dict:
     }
 
 
-def _gates(p, u):
-    """Returns (a, gated input b) in f32 for the recurrence."""
+def _gates(p, u, u_all=None):
+    """Returns (a, gated input b) in f32 for the recurrence; ``u_all``,
+    the gates' input over every channel where ``u`` holds this rank's
+    (default ``u``)."""
     uf = u.float()
-    r = torch.sigmoid(uf @ p["w_r"].float() + p["b_r"])
-    i = torch.sigmoid(uf @ p["w_i"].float() + p["b_i"])
+    ua = uf if u_all is None else u_all.float()
+    r = torch.sigmoid(ua @ p["w_r"].float() + p["b_r"])
+    i = torch.sigmoid(ua @ p["w_i"].float() + p["b_i"])
     log_a = -_C * F.softplus(p["lam"]) * r
     a = torch.exp(log_a)
     # sqrt(1 - a^2) input normalization keeps the state bounded
@@ -110,10 +120,10 @@ def associative_scan(fn, elems: tuple, dim: int) -> tuple:
     return tuple(_interleave(e, o, dim) for e, o in zip(even, odd))
 
 
-def rglru_scan(p, u):
+def rglru_scan(p, u, u_all=None):
     """u: [B, S, d_rnn] -> hidden states [B, S, d_rnn] (f32) by the
     log-depth scan."""
-    return associative_scan(_combine, _gates(p, u), 1)[1]
+    return associative_scan(_combine, _gates(p, u, u_all), 1)[1]
 
 
 def rglru_reference(p, u):
@@ -129,15 +139,29 @@ def rglru_reference(p, u):
 
 def rglru_forward(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     """Full recurrent block over [B, S, d] (train / prefill)."""
-    return _block(p, x)[0]
+    return _block(p, cfg, x)[0]
 
 
-def _block(p: dict, x: torch.Tensor):
-    """(block output, the raw pre-conv branch, the hidden states f32)."""
+def _tp(p, cfg):
+    """The tensor-parallel grid when ``p`` holds this rank's channels."""
+    blk = SH.model_block(p["wx"].shape[-1], cfg.d_model)
+    return None if blk is None else blk[0]
+
+
+def _block(p: dict, cfg, x: torch.Tensor):
+    """(block output, the raw pre-conv branch, the hidden states f32), the
+    latter two of this rank's channels."""
+    grid = _tp(p, cfg)
+    if grid is not None:
+        x = SH.replicated_over(x, grid, "model")
     branch = x @ p["wx"]
     gate = F.gelu(x @ p["wy"], approximate="tanh")
-    h = rglru_scan(p, causal_conv(branch, p["conv_w"], p["conv_b"]))
-    return (h.to(x.dtype) * gate) @ p["out"], branch, h
+    u = causal_conv(branch, p["conv_w"], p["conv_b"])
+    u_all = (None if grid is None
+             else SH.gather_block(u, grid, "model", u.dim() - 1))
+    h = rglru_scan(p, u, u_all)
+    y = (h.to(x.dtype) * gate) @ p["out"]
+    return (y if grid is None else SH.sum_over(y, grid, "model")), branch, h
 
 
 def init_rglru_state(cfg, batch: int, device="cpu") -> dict:
@@ -156,13 +180,17 @@ def rglru_state_specs(cfg) -> dict:
 def rglru_decode(p: dict, cfg, state: dict, x: torch.Tensor):
     """x: [B, 1, d] -> (y [B, 1, d], state), the state's ``conv`` and
     ``h`` updated in place."""
+    grid = _tp(p, cfg)
     branch = x[:, 0] @ p["wx"]
     gate = F.gelu(x[:, 0] @ p["wy"], approximate="tanh")
     conv_out, window = conv_step(state["conv"], branch, p["conv_w"],
                                  p["conv_b"])
-    a, b = _gates(p, conv_out)
+    u_all = None if grid is None else grid.all_gather(conv_out, "model", -1)
+    a, b = _gates(p, conv_out, u_all)
     h = a * state["h"] + b
     y = (h.to(x.dtype) * gate) @ p["out"]
+    if grid is not None:
+        y = SH.sum_over(y, grid, "model")
     state["conv"].copy_(window)
     state["h"].copy_(h)
     return y[:, None], state

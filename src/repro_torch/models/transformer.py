@@ -24,7 +24,6 @@ in the backward (``torch.utils.checkpoint``), as the reference's
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn as tnn
 from torch.utils.checkpoint import checkpoint
 
@@ -142,30 +141,14 @@ def apply_layer_prefill(p, cfg, kind, x, cos, sin, max_len: int = 0):
         state = {"k": k, "v": v}
     elif kind == "r":
         # the decode window carries the RAW pre-conv inputs
-        h, branch_raw, hs = rglru._block(p["rec"], h)
-        state = {"conv": _conv_tail(branch_raw, cfg.conv_width - 1),
+        h, branch_raw, hs = rglru._block(p["rec"], cfg, h)
+        state = {"conv": mamba2.conv_tail(branch_raw, cfg.conv_width - 1),
                  "h": hs[:, -1].clone()}
     else:
-        h, state = _mamba2_prefill(p["ssm"], cfg, h)
+        h, state = mamba2.mamba2_prefill(p["ssm"], cfg, h)
     x = x + h
     x = x if kind == "s" else _channel_mix(p, cfg, x)
     return shard_hint(x, ("batch", "seq", "embed")), state
-
-
-def _conv_tail(raw: torch.Tensor, w: int) -> torch.Tensor:
-    """Last ``w`` pre-conv inputs (a copy), zero-padded at the front if
-    s < w."""
-    s = raw.shape[1]
-    if s >= w:
-        return raw[:, -w:].clone()
-    return F.pad(raw, (0, 0, w - s, 0))
-
-
-def _mamba2_prefill(p, cfg, xin):
-    """mamba2 forward that also returns the final (conv, ssm) state."""
-    y, xbc_raw, h_final = mamba2._mixer(p, cfg, xin)
-    return y, {"conv": _conv_tail(xbc_raw, cfg.conv_width - 1),
-               "ssm": h_final}
 
 
 def apply_layer_decode(p, cfg, kind, state, x, pos, cos, sin):
@@ -250,13 +233,53 @@ def model_specs(cfg) -> dict:
             "layers": [layer_specs(cfg, kind) for kind in cfg.pattern]}
 
 
+class _Unstack(torch.autograd.Function):
+    """The layers of a stacked ``[L, ...]`` leaf as L views; their
+    gradients come back stacked into one ``[L, ...]`` tensor (indexing
+    each layer instead would give each its own zero ``[L, ...]`` gradient
+    and a sum of L of them)."""
+
+    @staticmethod
+    def forward(ctx, a):
+        return a.unbind(0)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return torch.stack(grads)
+
+
 def _layer_params(params, cfg):
-    """[(kind, per-layer tree)] for either layout (views of a stack)."""
+    """[(kind, per-layer tree, its placements)] for either layout (views
+    of a stack): the placements of this rank's blocks when the model is
+    given blocks (``sharding.param_placements``), else None."""
+    places = SH.param_placements()
     if stacked(cfg):
         kind = cfg.pattern[0]
-        return [(kind, tree.map(lambda a, i=i: a[i], params["layers"]))
-                for i in range(cfg.n_layers)]
-    return list(zip(cfg.pattern, params["layers"]))
+        leaves = [_Unstack.apply(a) for a in tree.leaves(params["layers"])]
+        per_layer = [tree.unflatten(params["layers"],
+                                    [views[i] for views in leaves])
+                     for i in range(cfg.n_layers)]
+        lp_places = (None if places is None else tree.map(
+            lambda _, p: p[1:], params["layers"], places["layers"]))
+        return [(kind, lp, lp_places) for lp in per_layer]
+    return [(kind, lp, None if places is None else places["layers"][i])
+            for i, (kind, lp) in enumerate(zip(cfg.pattern,
+                                               params["layers"]))]
+
+
+def _emb_params(params):
+    """The embeddings' parameters this rank computes with."""
+    places = SH.param_placements()
+    return (params["emb"] if places is None
+            else SH.layer_params(params["emb"], places["emb"]))
+
+
+def _run_layer(lp, lp_places, cfg, kind, x, cos, sin):
+    """:func:`apply_layer` of one layer's blocks (gathered here, so that
+    remat's recompute gathers them again)."""
+    if lp_places is not None:
+        lp = SH.layer_params(lp, lp_places)
+    return apply_layer(lp, cfg, kind, x, cos, sin)
 
 
 def _rope_tables(cfg, positions):
@@ -266,8 +289,8 @@ def _rope_tables(cfg, positions):
     return nn.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, sections)
 
 
-def _embed_inputs(params, cfg, batch: dict) -> torch.Tensor:
-    x = nn.embed_tokens(params["emb"], cfg, batch["tokens"])
+def _embed_inputs(emb, cfg, batch: dict) -> torch.Tensor:
+    x = nn.embed_tokens(emb, cfg, batch["tokens"])
     if "vision_embeds" in batch:   # VLM stub frontend: precomputed patches
         mask = batch["vision_mask"][..., None]
         x = torch.where(mask, batch["vision_embeds"].to(x.dtype), x)
@@ -284,37 +307,40 @@ def _positions(batch, b: int, s: int, device):
 def forward(params: dict, cfg, batch: dict) -> torch.Tensor:
     """Full-sequence forward -> f32 logits [B, S, n_emb * padded_vocab]."""
     check_supported(cfg)
-    x = _embed_inputs(params, cfg, batch)
+    emb = _emb_params(params)
+    x = _embed_inputs(emb, cfg, batch)
     b, s = batch["tokens"].shape[:2]
     cos, sin = _rope_tables(cfg, _positions(batch, b, s, x.device))
-    for kind, lp in _layer_params(params, cfg):
+    for kind, lp, lp_places in _layer_params(params, cfg):
         if cfg.remat:
-            x = checkpoint(apply_layer, lp, cfg, kind, x, cos, sin,
+            x = checkpoint(_run_layer, lp, lp_places, cfg, kind, x, cos, sin,
                            use_reentrant=False,
                            context_fn=SH.checkpoint_contexts)
         else:
-            x = apply_layer(lp, cfg, kind, x, cos, sin)
-    x = nn.rms_norm(x, params["emb"]["ln_f"], cfg.norm_eps)
-    return shard_hint(nn.unembed(params["emb"], cfg, x),
-                      ("batch", "seq", "vocab"))
+            x = _run_layer(lp, lp_places, cfg, kind, x, cos, sin)
+    x = nn.rms_norm(x, emb["ln_f"], cfg.norm_eps)
+    return shard_hint(nn.unembed(emb, cfg, x), ("batch", "seq", "vocab"))
 
 
 def prefill(params: dict, cfg, batch: dict, max_len: int = 0):
     """Forward + decode-state construction. Returns (logits, states), the
     states stacked [L, ...] or listed as the parameters are."""
     check_supported(cfg)
-    x = _embed_inputs(params, cfg, batch)
+    emb = _emb_params(params)
+    x = _embed_inputs(emb, cfg, batch)
     b, s = batch["tokens"].shape[:2]
     cos, sin = _rope_tables(cfg, _positions(batch, b, s, x.device))
     states = []
-    for kind, lp in _layer_params(params, cfg):
+    for kind, lp, lp_places in _layer_params(params, cfg):
+        if lp_places is not None:
+            lp = SH.layer_params(lp, lp_places)
         x, st = apply_layer_prefill(lp, cfg, kind, x, cos, sin, max_len)
         states.append(st)
     if stacked(cfg):
         states = {name: torch.stack([st[name] for st in states])
                   for name in states[0]}
-    x = nn.rms_norm(x, params["emb"]["ln_f"], cfg.norm_eps)
-    return nn.unembed(params["emb"], cfg, x), states
+    x = nn.rms_norm(x, emb["ln_f"], cfg.norm_eps)
+    return nn.unembed(emb, cfg, x), states
 
 
 def decode_step(params: dict, cfg, states, batch: dict):
@@ -324,7 +350,8 @@ def decode_step(params: dict, cfg, states, batch: dict):
     Returns (logits [B, 1, V], states).
     """
     check_supported(cfg)
-    x = _embed_inputs(params, cfg, batch)
+    emb = _emb_params(params)
+    x = _embed_inputs(emb, cfg, batch)
     pos = int(batch["pos"])
     b = batch["tokens"].shape[0]
     positions = batch.get("positions")
@@ -335,12 +362,15 @@ def decode_step(params: dict, cfg, states, batch: dict):
                      for i in range(cfg.n_layers)] if stacked(cfg)
                     else states)
     new_states = []
-    for (kind, lp), st in zip(_layer_params(params, cfg), layer_states):
+    for (kind, lp, lp_places), st in zip(_layer_params(params, cfg),
+                                         layer_states):
+        if lp_places is not None:
+            lp = SH.layer_params(lp, lp_places)
         x, st = apply_layer_decode(lp, cfg, kind, st, x, pos, cos, sin)
         new_states.append(st)
-    x = nn.rms_norm(x, params["emb"]["ln_f"], cfg.norm_eps)
-    return nn.unembed(params["emb"], cfg, x), (states if stacked(cfg)
-                                               else new_states)
+    x = nn.rms_norm(x, emb["ln_f"], cfg.norm_eps)
+    return nn.unembed(emb, cfg, x), (states if stacked(cfg)
+                                     else new_states)
 
 
 def init_states(cfg, batch: int, max_len: int, device="cpu"):

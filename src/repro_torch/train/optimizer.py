@@ -40,19 +40,21 @@ def schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, whole=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares (in f32), summed leaf
-    by leaf in the reference's order."""
+    by leaf in the reference's order. ``whole`` maps the list of the
+    leaves' sums to the whole tensors' (when the leaves are blocks)."""
+    sums = [torch.sum(torch.square(g.float())) for g in tree.leaves(grads)]
     total = 0
-    for g in tree.leaves(grads):
-        total = total + torch.sum(torch.square(g.float()))
+    for s in (sums if whole is None else whole(sums)):
+        total = total + s
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, whole=None):
     """(grads scaled to a global norm of at most ``max_norm``, in f32;
     the norm before clipping)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, whole)
     scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
     return tree.map(lambda g: g.float() * scale, grads), norm
 
@@ -112,33 +114,66 @@ def adafactor_init(params, cfg: OptimizerConfig):
                                  device=_device(params))}
 
 
-def adafactor_update(grads, state, params, cfg: OptimizerConfig):
+class WholeStats:
+    """Adafactor's statistics of a whole tensor. A tensor held as blocks
+    (``train.train_step``) replaces these per leaf: its means sum over
+    the ring of the reduced dims, and its column moment ``vc``, which the
+    rules may split unlike the gradient's columns, is moved between the
+    two layouts."""
+
+    @staticmethod
+    def mean(x, dim=None, pdim=None):
+        """The mean of ``x`` over ``dim`` (None: every element); ``pdim``
+        is the parameter's dim that ``dim`` reduces."""
+        return torch.mean(x) if dim is None else x.mean(dim)
+
+    @staticmethod
+    def columns(vc):
+        """The stored ``vc`` in the gradient's layout."""
+        return vc
+
+    @staticmethod
+    def stored(vc):
+        """A ``vc`` in the gradient's layout as it is stored."""
+        return vc
+
+
+def adafactor_update(grads, state, params, cfg: OptimizerConfig,
+                     stats=None):
+    """``stats``: a tree of the params' structure whose leaves replace
+    :class:`WholeStats` for that leaf."""
     count = state["count"] + 1
     lr = schedule(cfg, count)
     decay = 1.0 - torch.pow(count.float() + 1.0, -0.8)
 
-    def upd(g, v, p):
+    def upd(g, v, p, st):
         gf = g.float()
         g2 = gf * gf + 1e-30
-        if _factored(p.shape):
-            vr = decay * v["vr"] + (1 - decay) * g2.mean(-1)
-            vc = decay * v["vc"] + (1 - decay) * g2.mean(-2)
+        n = p.dim()
+        mean = st.mean
+        if "vr" in v:       # factored (a block's shape may not say so)
+            vr = decay * v["vr"] + (1 - decay) * mean(g2, -1, n - 1)
+            vc = (decay * st.columns(v["vc"])
+                  + (1 - decay) * mean(g2, -2, n - 2))
             denom = (vr[..., None] * vc[..., None, :]
-                     / torch.clamp_min(vr.mean(-1)[..., None, None], 1e-30))
+                     / torch.clamp_min(mean(vr, -1, n - 2)[..., None, None],
+                                       1e-30))
             step = gf * torch.rsqrt(denom + 1e-30)
-            new_v = {"vr": vr, "vc": vc}
+            new_v = {"vr": vr, "vc": st.stored(vc)}
         else:
             vf = decay * v["v"] + (1 - decay) * g2
             step = gf * torch.rsqrt(vf + 1e-30)
             new_v = {"v": vf}
         # update clipping (Adafactor's RMS-1 rule)
-        rms = torch.sqrt(torch.mean(step * step) + 1e-30)
+        rms = torch.sqrt(mean(step * step) + 1e-30)
         step = step / torch.clamp_min(rms, 1.0)
         new_p = (p.float() - lr * step
                  - lr * cfg.weight_decay * p.float())
         return new_p.to(p.dtype), new_v
 
-    out = tree.map(upd, grads, state["v"], params)
+    if stats is None:
+        stats = tree.map(lambda _: WholeStats, params)
+    out = tree.map(upd, grads, state["v"], params, stats)
     pick = _picker(grads, out)
     return pick(0), {"v": pick(1), "count": count}
 

@@ -9,14 +9,17 @@ so the state never holds a graph).
 :func:`make_sharded_train_step` is the same function on a process grid.
 At rest every leaf of the state is this rank's block under the placements
 the sharding rules resolve (the reference's ``NamedSharding``s). A step
-gathers the parameters whole, runs the forward and backward on the
-rank's rows of each microbatch (``distributed.sharding.batch_rows``),
-all-reduces the f32 gradients over the batch axes only (ranks along
-"model" hold replicas), takes the mean, the global-norm clip and
-Adafactor's row and column statistics over the whole gradient, and
-updates the rank's blocks. Compute that the reference partitions along
-"model" (tensor-parallel matmuls) runs replicated; only the MoE splits
-its experts there (``models.moe.moe_forward_ep``).
+runs the forward and backward on the rank's rows of each microbatch
+(``distributed.sharding.batch_rows``) and on its blocks of the
+parameters, as GSPMD partitions the reference: each layer gathers its
+FSDP blocks as it runs (their gradients reduce-scattered back into the
+blocks) and computes its share along "model" (tensor parallelism,
+``models.layers``; the MoE's experts split as ``models.moe.
+moe_forward_ep``). Each block's gradient is then all-reduced over the
+batch axes its gathers did not already sum, the global norm is the
+whole model's (each block's sum of squares summed over its ring),
+Adafactor's row, column and RMS statistics are the whole tensor's (the
+blocks' sums over their rings), and the rank updates its blocks.
 """
 from __future__ import annotations
 
@@ -128,38 +131,50 @@ def make_sharded_train_step(cfg, opt_cfg: opt.OptimizerConfig, grid,
     rules = rules or SH.rules_for(cfg)
     batch_axes = SH.as_axes(batch_axes)
     n = grid.axis_size(batch_axes)
+    places = placements["params"]
+    template = transformer.init_model(cfg, None, "meta")
+    leaf_places = tree.leaves(tree.map(lambda _, p: _Placed(p), template,
+                                       places))
+    kw = ({"stats": tree.map(lambda _, p, v: _BlockStats(grid, p, v),
+                             template, places, placements["opt"]["v"])}
+          if opt_cfg.kind == "adafactor" else {})
+
+    def whole(sums):
+        """Each leaf's sum of squares over the whole tensor: the blocks'
+        summed over the ring of their axes, one all-reduce an axis set."""
+        groups: dict = {}
+        for i, pl in enumerate(leaf_places):
+            axes = tuple(a for a in grid.axes if a in SH.placed_axes(pl.p))
+            if grid.axis_size(axes) > 1:
+                groups.setdefault(axes, []).append(i)
+        sums = list(sums)
+        for axes, idx in groups.items():
+            total = grid.psum(torch.stack([sums[i] for i in idx]), axes)
+            for j, i in enumerate(idx):
+                sums[i] = total[j]
+        return sums
 
     def train_step(state, batch):
         blocks = state["params"]
-        params = SH.gather_tree(grid, blocks, placements["params"])
-        with SH.activation_sharding(grid, rules, batch_axes):
-            loss_val, grads = _accumulate(grad_fn, params, batch,
+        with SH.activation_sharding(grid, rules, batch_axes, places):
+            loss_val, grads = _accumulate(grad_fn, blocks, batch,
                                           microbatches)
-        # the mean over the microbatches and the batch shards
+        # the mean over the microbatches and the batch shards; a gather
+        # over a batch axis already summed the gradient over it
         d = microbatches * n
-        grads = tree.map(lambda g: grid.psum(g.float(), batch_axes), grads)
+        grads = tree.map(lambda g, p: grid.psum(g.float(), tuple(
+            a for a in batch_axes if a not in SH.placed_axes(p))),
+            grads, places)
         loss_val = grid.psum(loss_val, batch_axes)
         if d > 1:
             grads = tree.map(lambda g: g / d, grads)
             loss_val = loss_val / d
 
         with torch.no_grad():
-            grads, gnorm = opt.clip_by_global_norm(grads, opt_cfg.grad_clip)
-            if opt_cfg.kind == "adafactor":
-                # factored moments and the update's RMS clip read whole
-                # rows, columns and tensors: update the whole tensors,
-                # keep this rank's blocks
-                new_params, new_opt = update(
-                    grads, SH.gather_tree(grid, state["opt"],
-                                          placements["opt"]), params,
-                    opt_cfg)
-                new_params = SH.local_blocks(grid, new_params,
-                                             placements["params"])
-                new_opt = SH.local_blocks(grid, new_opt, placements["opt"])
-            else:   # elementwise: the blocks alone
-                new_params, new_opt = update(
-                    SH.local_blocks(grid, grads, placements["params"]),
-                    state["opt"], blocks, opt_cfg)
+            grads, gnorm = opt.clip_by_global_norm(grads, opt_cfg.grad_clip,
+                                                   whole)
+            new_params, new_opt = update(grads, state["opt"], blocks,
+                                         opt_cfg, **kw)
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
         metrics = {"loss": loss_val, "grad_norm": gnorm,
@@ -167,3 +182,54 @@ def make_sharded_train_step(cfg, opt_cfg: opt.OptimizerConfig, grid,
         return new_state, metrics
 
     return train_step
+
+
+class _Placed:
+    """A placement held as one leaf (``tree.leaves`` walks into
+    tuples)."""
+
+    def __init__(self, p):
+        self.p = p
+
+
+class _BlockStats(opt.WholeStats):
+    """Adafactor's statistics of a block under ``placement`` (the
+    optimizer's :class:`~repro_torch.train.optimizer.WholeStats`): a mean
+    sums over the ring of the reduced dims' axes; ``vc``'s last dim, which
+    the rules resolve on its own dims (where the parameter's next-to-last
+    dim no longer holds an axis), is gathered and cut between its stored
+    placement and the gradient's columns."""
+
+    def __init__(self, grid, placement, v_places):
+        self.grid, self.placement = grid, placement
+        self.vc = v_places.get("vc") if isinstance(v_places, dict) else None
+
+    def mean(self, x, dim=None, pdim=None):
+        grid = self.grid
+        if dim is None:
+            axes = tuple(a for a in grid.axes
+                         if a in SH.placed_axes(self.placement))
+        else:
+            axes = SH.as_axes(self.placement[pdim])
+        n = grid.axis_size(axes)
+        if n == 1:
+            return opt.WholeStats.mean(x, dim)
+        if dim is None:
+            return grid.psum(torch.sum(x), axes) / (x.numel() * n)
+        return grid.psum(x.sum(dim), axes) / (x.shape[dim] * n)
+
+    def _move(self, vc, src, dst):
+        src, dst = SH.as_axes(src), SH.as_axes(dst)
+        if src == dst:
+            return vc
+        vc = self.grid.all_gather(vc, src, -1)
+        if self.grid.axis_size(dst) > 1:
+            n = vc.shape[-1] // self.grid.axis_size(dst)
+            vc = vc.narrow(-1, self.grid.axis_index(dst) * n, n)
+        return vc
+
+    def columns(self, vc):
+        return self._move(vc, self.vc[-1], self.placement[-1])
+
+    def stored(self, vc):
+        return self._move(vc, self.placement[-1], self.vc[-1])

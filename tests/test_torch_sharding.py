@@ -246,3 +246,69 @@ def test_batch_rows_follow_the_microbatches():
     assert rows(3, over_model, 2) == (("data", "model"), [3, 7])
     assert rows(1, over_model, 4) == (("data",), [0, 2, 4, 6])
     assert rows(3, rules, 1, b=1) == ((), [0])
+
+
+# ---------------------------------------------------------------------------
+# gathers over the placement's own rings
+# ---------------------------------------------------------------------------
+
+GATHER_PLACEMENTS = [("data", None), (None, "model"), ("model", "data"),
+                     (("data", "model"), None), (None, None)]
+GATHER_SHAPE = (8, 12)
+
+
+def _gather_body():
+    """Every placement's blocks gathered on every rank (and on rank 0
+    alone, ``dst=0``), against the global tensor; this rank's records."""
+    import dataclasses
+    grid = dataclasses.replace(
+        mesh_lib.make_grid((2, 2), ("data", "model"), "cpu"), records=[])
+    full = torch.arange(96, dtype=torch.float32).reshape(GATHER_SHAPE)
+    ok = []
+    for p in GATHER_PLACEMENTS:
+        blk = grid.local_block(full, p)
+        whole = grid.gather(blk, p)
+        ok.append(torch.equal(whole, full) and whole is not blk)
+        at0 = grid.gather(blk, p, dst=0)
+        ok.append(torch.equal(at0, full) if grid.rank == 0 else at0 is None)
+    return ok, list(grid.records)
+
+
+def test_gather_is_ring_by_ring_on_gloo_ranks():
+    """On 4 gloo ranks of a 2 x 2 grid, ``DeviceGrid.gather`` returns the
+    global tensor of each placement (a dim over "data", over "model", over
+    both, over the pair, none) on every rank, and with ``dst=0`` on rank
+    0; rank 0's records are a rankless rank's, one all-gather over each
+    split dim's own ring (the whole grid only for the ``dst`` form)."""
+    ok, real = mesh_lib.run_ranks(_gather_body, 4)
+    assert all(ok)
+    grid = mesh_lib.rankless_grid(mesh_lib.Layout((2, 2), ("data",
+                                                          "model")), 0)
+    for p in GATHER_PLACEMENTS:
+        blk = torch.empty(grid.local_block(
+            torch.empty(GATHER_SHAPE, device="meta"), p).shape,
+            device="meta")
+        grid.gather(blk, p)
+        grid.gather(blk, p, dst=0)
+    assert real == grid.records
+    every = (0, 1, 2, 3)
+    assert [r.ranks for r in real] == [
+        (0, 2), every, (0, 1), every, (0, 1), (0, 2), every, every, every,
+        every]
+
+
+def test_gather_wire_is_the_rings():
+    """A rankless rank of 16 x 16 records the gather of a block placed over
+    "model" alone as one all-gather over its 16-rank model ring: 15/16 of
+    the tensor on the wire, where one gather over the whole grid sent
+    255/256 of 16 copies of it."""
+    grid = mesh_lib.rankless_grid(mesh_lib.production_layout(), 0)
+    blk = torch.empty(64, 1024, device="meta")
+    full = grid.gather(blk, ("model", None))
+    assert tuple(full.shape) == (1024, 1024)
+    (rec,) = grid.records
+    assert rec.kind == "all-gather"
+    assert rec.ranks == tuple(range(16))
+    assert rec.wire_bytes == 15 / 16 * 1024 * 1024 * 4
+    grid.gather(blk, ("model", None), dst=0)
+    assert grid.records[-1].wire_bytes == 255 / 256 * 256 * 64 * 1024 * 4
