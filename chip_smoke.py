@@ -75,10 +75,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     fits, dominant term, MFU); ``python -m repro_torch.launch.diagnose``
     for kimi-k2 ``train_4k``, top 10 ops; one rank's share of the
     tensor-parallel step on the card: rank 0 of 16 x 16 ``train_4k`` for
-    qwen3-4b (its state blocks and batch rows as real tensors, its
-    collectives recorded and not sent, so its values are only checked
-    finite), its op count against the ``meta`` count of the same rank op
-    for op, one step's ms against that rank's roofline (and the device's
+    qwen3-4b and for qwen2-vl-7b, whose batch over (data, model) has
+    every weight block gathered over the model ring and its gradient
+    reduce-scattered (its state blocks and batch rows as real tensors,
+    its collectives recorded and not sent, so its values are only
+    checked finite), its op count against the ``meta`` count of the same
+    rank op for op and its collectives by kind against the ``meta``
+    rank's, one step's ms against that rank's roofline (and the device's
     busy share of a profiled step), its tracked peak against
     ``torch.cuda.max_memory_allocated``;
 5. every other ported scenario at a small size, card == CPU bitwise
@@ -2428,21 +2431,28 @@ def _card_vs_meta(cfg, ocfg):
     return counter
 
 
-# 4f(f): one rank's share of a production tensor-parallel train step
-SHARE_ARCH, SHARE_SHAPE, SHARE_RANK = "qwen3-4b", "train_4k", 0
+# 4f(f): one rank's share of a production tensor-parallel train step:
+# arch -> (ms of the same step in PR 20's final call on an H100 at 700 W,
+# or None, and whether its gathers' gradients are reduce-scattered);
+# qwen2-vl-7b carries its batch over "model" too, so every weight block
+# is gathered and its gradient reduce-scattered over the model ring
+SHARES = {"qwen3-4b": (8223.3, False), "qwen2-vl-7b": (None, True)}
+SHARE_SHAPE, SHARE_RANK = "train_4k", 0
 
 
-def _rank_share_on_card() -> None:
+def _rank_share_on_card(arch: str) -> None:
     """(f): rank ``SHARE_RANK`` of the 16 x 16 layout on the card, through
     the dry-run's own cell (``dryrun_lib.build_train_cell``): the same
     rankless grid on ``cuda``, its ``meta`` blocks made real (small
     seeded values, token ids 0). Nothing is sent, so the values are not a
     real rank's and are only checked finite; the op count must equal the
-    ``meta`` count of the same rank op for op."""
+    ``meta`` count of the same rank op for op, and the collectives the
+    ``meta`` rank's."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import tree
+    from repro_torch.analysis import collectives as CL
     from repro_torch.analysis import op_cost as OC
     from repro_torch.analysis import roofline as RL
     from repro_torch.configs import get_config
@@ -2450,9 +2460,10 @@ def _rank_share_on_card() -> None:
     from repro_torch.launch import dryrun_lib as lib
     from repro_torch.launch import mesh as mesh_lib
     card = card_line()
-    cfg, shape = get_config(SHARE_ARCH), LM_SHAPES[SHARE_SHAPE]
+    cfg, shape = get_config(arch), LM_SHAPES[SHARE_SHAPE]
+    pr20_ms, scatters = SHARES[arch]
     layout = mesh_lib.production_layout()
-    micro = lib.MICROBATCHES[SHARE_ARCH]
+    micro = lib.MICROBATCHES[arch]
     t0 = time.perf_counter()
     meta_grid = mesh_lib.rankless_grid(layout, SHARE_RANK)
     fn, args = lib.build_train_cell(cfg, shape, meta_grid, micro)
@@ -2509,15 +2520,24 @@ def _rank_share_on_card() -> None:
             if counter.per_op.get(n) != meta.per_op.get(n)}
     n_ops = sum(v[0] for v in counter.per_op.values())
     ms = sorted(times)[1] * 1e3
+
+    def by_kind(colls):
+        wire = CL.collective_summary(colls)["by_kind"]
+        return {k: (sum(c.kind == k for c in colls), f"{wire[k] / 1e9:.3f}")
+                for k in sorted(wire)}
+    log(f"4f rank share {arch} collectives ({card}): by kind (count, "
+        f"wire GB) {by_kind(counter.collectives)} on the card, "
+        f"{by_kind(meta.collectives)} on meta")
     log(f"4f rank share ({card}): rank {SHARE_RANK} of 16 x 16 "
-        f"{SHARE_SHAPE} {SHARE_ARCH} ({micro} microbatches; meta count "
+        f"{SHARE_SHAPE} {arch} ({micro} microbatches; meta count "
         f"{meta_s:.1f} s): {n_ops} ops of {len(counter.per_op)} kinds on "
         f"the card, {sum(v[0] for v in meta.per_op.values())} on meta; "
         f"FLOPs {counter.flops:.6e} / {meta.flops:.6e}, bytes "
         f"{counter.bytes:.6e} / {meta.bytes:.6e}; collectives recorded "
         f"{len(counter.collectives)} / {len(meta.collectives)}; "
         f"finite: {finite}; one step {ms:.1f} ms (median of 3: "
-        f"{', '.join(f'{t * 1e3:.1f}' for t in times)}) against its "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times)}; PR 20 "
+        f"{pr20_ms or 'not measured'} ms) against its "
         f"roofline {rl.step_time_s * 1e3:.1f} ms (compute "
         f"{rl.compute_s * 1e3:.1f}, memory {rl.memory_s * 1e3:.1f}, "
         f"collective {rl.collective_s * 1e3:.1f}: {rl.dominant}), "
@@ -2535,6 +2555,14 @@ def _rank_share_on_card() -> None:
         log(f"  differs: {n}: card [count, FLOPs, bytes] {c}, meta {m}")
     if diff:
         raise AssertionError(f"4f rank share: {sorted(diff)} differ")
+    if counter.collectives != meta.collectives:
+        raise AssertionError("4f rank share: the card's collectives differ "
+                             "from the meta rank's")
+    if any(c.kind == "reduce-scatter"
+           for c in counter.collectives) != scatters:
+        raise AssertionError(f"4f rank share {arch}: reduce-scatters "
+                             f"recorded: {not scatters}, expected "
+                             f"{scatters}")
     if not finite:
         raise AssertionError("4f rank share: a result is not finite")
     log("  every op's count, FLOPs and bytes: equal")
@@ -2587,7 +2615,7 @@ def _dryrun_table(out: Path, done: list) -> None:
         f"{max(t for *_, t in done):.1f} s the longest; per rank:")
     log(f"  {'arch':26s} {'shape':12s} {'layout':13s} {'trace_s':>8s} "
         f"{'peak_gb':>10s} {'fits':>5s} {'dominant':>10s} {'mfu':>9s} "
-        f"{'TFLOP':>10s} {'HBM GB':>10s} {'wire GB':>9s}")
+        f"{'TFLOP':>10s} {'HBM GB':>10s} {'wire GB':>9s}  wire GB by kind")
     for a, sh, m in want:
         r = recs[(a, sh, m)]
         if r.get("skipped"):
@@ -2606,7 +2634,9 @@ def _dryrun_table(out: Path, done: list) -> None:
             f"{rl['dominant']:>10s} {rl['mfu']:9.4%} "
             f"{rl['flops_per_device'] / 1e12:10.2f} "
             f"{rl['hbm_bytes_per_device'] / 1e9:10.1f} "
-            f"{rl['wire_bytes_per_device'] / 1e9:9.2f}")
+            f"{rl['wire_bytes_per_device'] / 1e9:9.2f}  "
+            + " ".join(f"{k} {v / 1e9:.2f}"
+                       for k, v in sorted(rl["coll_by_kind"].items())))
     log("4f diagnose --arch kimi-k2-1t-a32b --shape train_4k --top 10:")
     for line in (out / "diagnose.log").read_text().splitlines():
         log(f"  {line}")
@@ -2616,8 +2646,8 @@ def phase_dryrun(qwen_step_s: float, ssm_step_s: float) -> None:
     """Phase 4f (no kernel): (a) the sharded serving path on one NCCL
     rank, then, while the dry-run's CLI processes run on the host's other
     cores, (b) the op counter on the card against meta, (c) 4c's and
-    4d's steps beside their roofline and (f) one rank's share of a
-    production tensor-parallel step on the card; then (d) the dry-run's
+    4d's steps beside their roofline and (f) one rank's share of two
+    production tensor-parallel steps on the card; then (d) the dry-run's
     per-rank table and (e) kimi's diagnose. Every kernel count stays 0."""
     import os
     import threading
@@ -2652,7 +2682,8 @@ def phase_dryrun(qwen_step_s: float, ssm_step_s: float) -> None:
         ssm = get_config(SSM_ARCH)
         _roofline_line(f"{SSM_ARCH} (4d, the meta count)", ssm,
                        _meta_step_count(ssm, LM_MICRO), ssm_step_s)
-        _rank_share_on_card()
+        for arch in SHARES:
+            _rank_share_on_card(arch)
         runner.join()
     finally:
         stop.set()

@@ -254,10 +254,11 @@ def layer_params(blocks, placements):
     under ``placements``: each dim placed over other axes than the
     tensor-parallel "model" gathered over its ring (FSDP's "data", and
     "model" where it carries rows), the blocks along "model" kept. A
-    gather over a batch axis sums the ring's gradients into this rank's
-    block (the rows differ there); over any other axis the compute is the
-    same on the ring and the gradient is the block's share. Outside a
-    context with parameter blocks, ``blocks`` as they are."""
+    gather over a batch axis reduce-scatters the ring's gradients into
+    this rank's block (the rows differ there); over any other axis the
+    compute is the same on the ring and the gradient is the block's
+    share. Outside a context with parameter blocks, ``blocks`` as they
+    are."""
     cfg = getattr(_CTX, "cfg", None)
     if cfg is None or cfg[3] is None:
         return blocks
@@ -360,7 +361,7 @@ class _Reduce(torch.autograd.Function):
 class _Gather(torch.autograd.Function):
     """The ring's blocks of ``x`` along ``dim`` over ``axes``; the
     gradient of this rank's block is its slice of the gathered gradient,
-    summed over the ring first when ``summed``."""
+    or its block of the ring's sum (a reduce-scatter) when ``summed``."""
 
     @staticmethod
     def forward(ctx, x, grid, axes, dim, summed):
@@ -372,8 +373,9 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, g):
         grid = ctx.grid
         if ctx.summed:
-            g = grid.psum(g, ctx.axes)
-        g = g.narrow(ctx.dim, grid.axis_index(ctx.axes) * ctx.n, ctx.n)
+            g = grid.reduce_scatter(g, ctx.axes, ctx.dim)
+        else:
+            g = g.narrow(ctx.dim, grid.axis_index(ctx.axes) * ctx.n, ctx.n)
         return g.contiguous(), None, None, None, None
 
 
@@ -405,9 +407,9 @@ def reduce_over(x: torch.Tensor, grid, axes) -> torch.Tensor:
 def gather_block(x: torch.Tensor, grid, axes, dim: int = 0,
                  summed: bool = True) -> torch.Tensor:
     """The ring's blocks of ``x`` along ``dim`` over ``axes``, whole
-    (backward: this rank's block of the gradient, summed over the ring
-    when ``summed``: the ring's ranks used the whole on different rows or
-    different parts of it)."""
+    (backward: this rank's block of the gradient, reduce-scattered over
+    the ring when ``summed``: the ring's ranks used the whole on
+    different rows or different parts of it)."""
     if _alone(grid, axes):
         return x
     return _Gather.apply(x, grid, as_axes(axes), dim, summed)

@@ -15,7 +15,8 @@ its blocks live on, and whether a process group carries its collectives:
   ring, every ring created on every rank in the same order the first
   time those axes reduce); the identity with no group or a one-rank ring;
 * :meth:`DeviceGrid.all_gather` concatenates the blocks of a ring of
-  ``axes`` in ``axis_index`` order;
+  ``axes`` in ``axis_index`` order, and :meth:`DeviceGrid.reduce_scatter`
+  (its transpose) gives each rank its block of the ring's sum;
 * :meth:`DeviceGrid.send` is ``lax.ppermute`` along one ring of the grid:
   rank ``k`` of the ring receives the plane of rank ``k - delta``
   (``batch_isend_irecv``), the identity when the ring has one rank;
@@ -47,6 +48,7 @@ import math
 import os
 import shutil
 import tempfile
+import warnings
 
 import torch
 import torch.distributed as dist
@@ -54,9 +56,11 @@ from torch.utils import _python_dispatch
 
 from repro_torch.analysis.collectives import Collective
 
-# collectives a grid issued, and iterations of the cross-rank label merge
-# (repro_torch.cluster.mesh), one all-reduce of a changed flag each
-counters = {"all_reduce": 0, "send": 0, "gather": 0, "label_merge": 0}
+# collectives a grid issued (all-reduces, sends, gathers, reduce-scatters),
+# and iterations of the cross-rank label merge (repro_torch.cluster.mesh),
+# one all-reduce of a changed flag each
+counters = {"all_reduce": 0, "send": 0, "gather": 0, "reduce_scatter": 0,
+            "label_merge": 0}
 
 # the reference's production meshes (``repro.launch.mesh``)
 _PRODUCTION = {False: ((16, 16), ("data", "model")),
@@ -202,12 +206,15 @@ class DeviceGrid:
               call, received=()) -> None:
         """Issue one collective of ``operand`` over the ring of ``ranks``
         (``call`` runs it, filling ``received``), recording it when the
-        grid records (an all-gather's result is one operand a rank, the
-        others' one)."""
+        grid records. The result is the operand's size but for an
+        all-gather's (one operand a rank, the others' one) and a
+        reduce-scatter's (one rank's block of the operand)."""
         if self.records is not None:
             nbytes = operand.numel() * operand.element_size()
-            n = len(ranks) if kind == "all-gather" else 1
-            self.records.append(Collective(kind, nbytes * n, nbytes,
+            result = {"all-gather": nbytes * len(ranks),
+                      "reduce-scatter": nbytes // len(ranks)}.get(kind,
+                                                                  nbytes)
+            self.records.append(Collective(kind, result, nbytes,
                                            tuple(ranks)))
         call()
 
@@ -250,6 +257,41 @@ class DeviceGrid:
                    lambda: dist.all_gather(blocks, x, group=group), blocks)
         by_rank = dict(zip(sorted(ranks), blocks))   # group (sorted) order
         return torch.cat([by_rank[r] for r in ranks], dim)
+
+    def reduce_scatter(self, x: torch.Tensor, axes, dim: int = 0
+                       ) -> torch.Tensor:
+        """This rank's ``axis_index(axes)`` block along ``dim`` of the sum
+        of ``x`` over the ring of ``axes`` (the transpose of
+        :meth:`all_gather`); ``x`` itself, its one block, with no group or
+        a one-rank ring."""
+        n = self.axis_size(axes)
+        if not self.distributed or n == 1:
+            return x
+        counters["reduce_scatter"] += 1
+        group, ranks = self._ring(axes)
+        dim %= x.dim()
+        block = list(x.shape)
+        block[dim] //= n
+        x = x.detach()
+        if dim == 0 and ranks == sorted(ranks):
+            x = x.contiguous()
+        else:
+            # the group scatters the flat operand's n chunks to its ranks
+            # in sorted order: lay the blocks out so
+            parts = x.split(block[dim], dim)
+            x = torch.stack([parts[ranks.index(r)] for r in sorted(ranks)])
+        out = x.new_empty(block)
+
+        def scatter():
+            with warnings.catch_warnings():
+                # newer torch names it reduce_scatter_single, which older
+                # ones lack
+                warnings.simplefilter("ignore", FutureWarning)
+                dist.reduce_scatter_tensor(out.view(-1), x.view(-1),
+                                           group=group)
+
+        self._comm("reduce-scatter", ranks, x, scatter, (out,))
+        return out
 
     def send(self, plane: torch.Tensor, axes, delta: int) -> torch.Tensor:
         """Shift ``plane`` ``delta`` hops along the ring of ``axes``: this
@@ -343,11 +385,16 @@ class _RanklessGrid(DeviceGrid):
         super()._comm(kind, ranks, operand, lambda: None)
         if received and not operand.is_meta:
             # as if every rank held this one's operand (finite values on
-            # a real device); outside any counting mode, so that a real
-            # device's count is the ``meta`` one
+            # a real device; a reduce-scatter gives this rank's block of
+            # it); outside any counting mode, so that a real device's
+            # count is the ``meta`` one
             with _python_dispatch._disable_current_modes():
+                src = operand
+                if kind == "reduce-scatter":
+                    src = operand.reshape(len(ranks), -1)[
+                        sorted(ranks).index(self.rank)]
                 for buf in received:
-                    buf.copy_(operand)
+                    buf.copy_(src.reshape(buf.shape))
 
 
 def rankless_grid(layout, rank: int = 0, device="meta") -> DeviceGrid:
@@ -355,8 +402,8 @@ def rankless_grid(layout, rank: int = 0, device="meta") -> DeviceGrid:
     that needs no process group: its tensors live on ``device`` (by
     default ``meta``: shapes only) and its collectives are recorded in
     ``grid.records`` without being sent (on a real device a received
-    block is a copy of this rank's own, a reduction this rank's operand:
-    the values are finite, not a real rank's)."""
+    block is a copy of this rank's own, a reduction this rank's operand
+    or its block: the values are finite, not a real rank's)."""
     shape, axes = tuple(layout.shape), tuple(layout.axes)
     if not 0 <= rank < math.prod(shape):
         raise ValueError(f"rank {rank} is not on a {shape} grid")

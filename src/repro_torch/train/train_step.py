@@ -12,14 +12,16 @@ the sharding rules resolve (the reference's ``NamedSharding``s). A step
 runs the forward and backward on the rank's rows of each microbatch
 (``distributed.sharding.batch_rows``) and on its blocks of the
 parameters, as GSPMD partitions the reference: each layer gathers its
-FSDP blocks as it runs (their gradients reduce-scattered back into the
-blocks) and computes its share along "model" (tensor parallelism,
-``models.layers``; the MoE's experts split as ``models.moe.
-moe_forward_ep``). Each block's gradient is then all-reduced over the
-batch axes its gathers did not already sum, the global norm is the
-whole model's (each block's sum of squares summed over its ring),
-Adafactor's row, column and RMS statistics are the whole tensor's (the
-blocks' sums over their rings), and the rank updates its blocks.
+FSDP blocks as it runs and computes its share along "model" (tensor
+parallelism, ``models.layers``; the MoE's experts split as ``models.moe.
+moe_forward_ep``). A gather over batch axes gives its gradient back as
+a reduce-scatter, this rank's block of the ring's sum
+(``DeviceGrid.reduce_scatter``). Each block's gradient is then
+all-reduced over the batch axes its placement does not hold, the global
+norm is the whole model's (each block's sum of squares summed over its
+ring), Adafactor's row, column and RMS statistics are the whole
+tensor's (the blocks' sums over their rings), and the rank updates its
+blocks.
 """
 from __future__ import annotations
 
@@ -125,7 +127,10 @@ def make_sharded_train_step(cfg, opt_cfg: opt.OptimizerConfig, grid,
     of each microbatch over ``batch_axes``, in microbatch order (``data.
     synthetic.sharded_batch``). On a one-rank grid every gather and
     all-reduce is the identity, and the step is :func:`make_train_step`'s,
-    bitwise."""
+    bitwise. The gradients' collectives follow the dict order of
+    ``state["params"]``: a state in :func:`init_train_state`'s order
+    issues them as the dry-run records them, one in another order (the
+    sorted dicts ``bridge`` carries from the reference) in that one."""
     update = opt.update_fn(opt_cfg.kind)
     grad_fn = value_and_grad(cfg)
     rules = rules or SH.rules_for(cfg)

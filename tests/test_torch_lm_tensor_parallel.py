@@ -21,7 +21,14 @@ entry on gradients (their norm), parameters, optimizer and decode states
 (AdamW's parameters but for the entries ``test_torch_lm_ssm`` also leaves
 out, a first-step gradient that cancels to f32 noise, and an entry where
 the port's unsharded step misses the reference too and the sharded step
-lies within the bound of it: ``_trees_close``); routing exactly.
+lies within the bound of it: ``_trees_close``); routing exactly. Rank 0's
+collectives of the first step equal a rankless rank's of the same step
+(the dry-run's), and a gather's gradient that the ring sums comes back
+as a reduce-scatter. One more JAX run, the reference's unsharded step
+of recurrentgemma on 1 x 4, shows where the ``twin`` excuse applies the
+reference's own two programs differ beyond the bound; the RG-LRU gates'
+ops, differentiated in torch's order and in the reference's, move that
+entry and each op's gradient by rounding only.
 
 One rankless rank of a 2 x 4 layout counts the matrix-product FLOPs of
 qwen3-0.6b's (small) sharded step within 5% of the ``dot`` FLOPs of the
@@ -59,6 +66,7 @@ from repro_torch.launch import dryrun_lib as lib  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as E  # noqa: E402
+from repro_torch.models import rglru as R  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.train import optimizer as opt  # noqa: E402
 from repro_torch.train import train_step as TS  # noqa: E402
@@ -85,6 +93,17 @@ MOE_ARCH = "kimi-k2-1t-a32b"
 SEQ, BATCH, MICRO, STEPS = 16, 8, 2, 2
 SB, PROMPT, MAX_LEN, DECODES = 4, 12, 16, 4
 SHAPE = ShapeConfig("t", seq_len=SEQ, global_batch=BATCH, kind="train")
+# the arch whose entry lies beyond the bound of the reference's sharded
+# step in both the port's steps and the reference's own unsharded one
+GAP_ARCH, GAP_LEAF, GAP_ENTRY = "recurrentgemma-2b", "layers/1/rec/b_r", 2
+# the models whose step reduce-scatters gradients of its gathers: kimi's
+# FSDP blocks over "data" (one data rank on 1 x 4), musicgen's blocks
+# over "model" (its batch axis too), the RG-LRU gates' input and mamba2's
+# in_proj and conv weights over "model"
+SCATTERING = {"2x2": {"kimi-k2-1t-a32b", "musicgen-medium",
+                      "recurrentgemma-2b", "mamba2-780m"},
+              "1x4": {"musicgen-medium", "recurrentgemma-2b",
+                      "mamba2-780m"}}
 COUNT_GRID = (2, 4)
 COUNT_SHAPE = ShapeConfig("c", seq_len=32, global_batch=8, kind="train")
 MATMUL_REL = 0.05
@@ -203,6 +222,14 @@ for arch in NAMES:
             states = jax.device_put(states, ssh)
             seen.append(np.asarray(dl))
     out[("serve", arch)] = (seen, jax.tree.map(np.asarray, states))
+    if arch in UNSHARDED:
+        ustep = jax.jit(TS.make_train_step(cfg, ocfg, MICRO))
+        state = jax.tree.map(jnp.asarray, init)
+        for i in range(STEPS):
+            host = syn.sharded_batch(i, shape, cfg, bsh)
+            state, _ = ustep(state, {k: jnp.asarray(np.asarray(v))
+                                     for k, v in host.items()})
+        out[("unsharded", arch)] = jax.tree.map(np.asarray, state["params"])
 with open(PATH, "wb") as f:
     pickle.dump(out, f)
 """
@@ -261,7 +288,7 @@ def _start(path, code, devices, **consts):
 
 def _train_body(grid, name, init):
     """Two sharded steps from the carried state: metrics, the gathered
-    state and this rank's block shapes."""
+    state, this rank's block shapes and the first step's collectives."""
     cfg = port_cfg(_jcfg(name))
     ocfg = _ocfg(opt, cfg)
     rules = SH.rules_for(cfg)
@@ -271,17 +298,25 @@ def _train_body(grid, name, init):
              "opt": bridge.opt_state_from_jax(
                  init["opt"], blocks=(grid, places["opt"])),
              "step": torch.tensor(0, dtype=torch.int32)}
+    # the dicts in the order the port initialises them (the carried ones
+    # are sorted), as the dry-run's: the step issues its gradients'
+    # collectives in that order
+    state = tree.map(lambda _, x: x,
+                     TS.init_train_state(cfg, ocfg, None, "meta"), state)
     axes, rows = SH.batch_rows(grid, rules, BATCH, MICRO)
     step = TS.make_sharded_train_step(cfg, ocfg, grid, places, axes, rules,
                                       MICRO)
     metrics = []
     for i in range(STEPS):
+        del grid.records[:]
         state, m = step(state, syn.device_batch(i, SHAPE, cfg, "cpu",
                                                 rows=rows))
         metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        if i == 0:
+            records = list(grid.records)
     shapes = [tuple(a.shape) for a in tree.leaves(state)]
     full = tree.map(lambda a, pl: grid.gather(a, pl), state, places)
-    return metrics, full, shapes
+    return metrics, full, shapes, records
 
 
 def _serve_body(grid, name, params_np, prompt, toks):
@@ -323,7 +358,8 @@ def _serve_body(grid, name, params_np, prompt, toks):
 
 
 def _port_body(shape, names, inputs):
-    grid = mesh_lib.make_grid(shape, AXES, "cpu")
+    grid = dataclasses.replace(mesh_lib.make_grid(shape, AXES, "cpu"),
+                               records=[])
     out = {}
     for name in names:
         init, prompt, toks = inputs[name]
@@ -344,7 +380,8 @@ def results(tmp_path_factory):
             pickle.dump(inputs, f)
         procs[name] = (path, _start(
             path, _JAX_RUNS, 4, GRID=shape, NAMES=GRID_MODELS[name],
-            MODELS=MODELS, SEQ=SEQ,
+            MODELS=MODELS, UNSHARDED=[GAP_ARCH] if shape == (1, 4) else [],
+            SEQ=SEQ,
             BATCH=BATCH, MICRO=MICRO, STEPS=STEPS, SB=SB, PROMPT=PROMPT,
             MAX_LEN=MAX_LEN))
     count_path = tmp / "count.pkl"
@@ -421,17 +458,75 @@ def _trees_close(got, want, what, noise=None, twin=None):
         _close(g, w, f"{what} {path}", rel=REL)
 
 
+class _ReferenceSigmoid(torch.autograd.Function):
+    """``torch.sigmoid`` differentiated as JAX does: ``g * (s * (1 - s))``
+    (torch: ``g * (1 - s) * s``)."""
+
+    @staticmethod
+    def forward(ctx, a):
+        s = torch.sigmoid(a)
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        s, = ctx.saved_tensors
+        return g * (s * (1 - s))
+
+
+class _ReferenceSqrt(torch.autograd.Function):
+    """``torch.sqrt`` differentiated as JAX does: ``g * (0.5 / s)``."""
+
+    @staticmethod
+    def forward(ctx, a):
+        s = torch.sqrt(a)
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        s, = ctx.saved_tensors
+        return g * (0.5 / s)
+
+
+def _reference_order_gates(sqrt_too: bool):
+    """``rglru._gates`` with its sigmoids (and its sqrt when ``sqrt_too``)
+    differentiated in the reference's order."""
+    sqrt = _ReferenceSqrt.apply if sqrt_too else torch.sqrt
+
+    def gates(p, u, u_all=None):
+        uf = u.float()
+        ua = uf if u_all is None else u_all.float()
+        r = _ReferenceSigmoid.apply(ua @ p["w_r"].float() + p["b_r"])
+        i = _ReferenceSigmoid.apply(ua @ p["w_i"].float() + p["b_i"])
+        a = torch.exp(-R._C * torch.nn.functional.softplus(p["lam"]) * r)
+        return a, sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * uf)
+    return gates
+
+
+# the gates' backward orders: torch's, and the reference's for the
+# sigmoids (and the sqrt)
+GATE_ORDERS = {"torch": None, "sigmoid": False, "sigmoid-and-sqrt": True}
+
+
 @functools.lru_cache(maxsize=None)
-def _unsharded(name):
-    """The port's unsharded two steps from the carried state."""
+def _unsharded(name, order="torch"):
+    """The port's unsharded two steps from the carried state, the RG-LRU
+    gates differentiated in ``GATE_ORDERS[order]``."""
     init = _inputs()[name][0]
     cfg = port_cfg(_jcfg(name))
     state = {"params": bridge.lm_params_from_jax(init["params"], cfg),
              "opt": bridge.opt_state_from_jax(init["opt"]),
              "step": torch.tensor(0, dtype=torch.int32)}
     step = TS.make_train_step(cfg, _ocfg(opt, cfg), MICRO)
-    for i in range(STEPS):
-        state, _ = step(state, syn.device_batch(i, SHAPE, cfg, "cpu"))
+    gates = R._gates
+    if GATE_ORDERS[order] is not None:
+        R._gates = _reference_order_gates(GATE_ORDERS[order])
+    try:
+        for i in range(STEPS):
+            state, _ = step(state, syn.device_batch(i, SHAPE, cfg, "cpu"))
+    finally:
+        R._gates = gates
     return state
 
 
@@ -446,7 +541,7 @@ def test_tensor_parallel_train_step_matches_jax(results, grid, arch):
     entry) against the JAX jitted step on the same mesh; each rank's
     block shapes are the reference's shard shapes."""
     port, ref, _ = results
-    metrics, full, shapes = port[grid][("train", arch)]
+    metrics, full, shapes, _ = port[grid][("train", arch)]
     jmetrics, jstate, jshards, noise = ref[grid][("train", arch)]
     for (loss, gnorm), (jloss, jgnorm) in zip(metrics, jmetrics):
         assert abs(loss - jloss) <= ABS, (loss, jloss)
@@ -487,6 +582,182 @@ def test_tensor_parallel_routing_is_the_reference_routing(results, grid):
         for k in ("gate_idx", "order", "keep", "dest", "counts"):
             np.testing.assert_array_equal(got[k].numpy(),
                                           np.asarray(want[k]), err_msg=k)
+
+
+def _rankless_step(cfg, grid):
+    """A rankless rank 0's records of one sharded train step on ``meta``
+    (``dryrun_lib.build_train_cell``: what the dry-run prices), and those
+    its microbatches' forward and backward made."""
+    rankless = mesh_lib.rankless_grid(mesh_lib.Layout(GRIDS[grid], AXES), 0)
+    spans = []
+    vag = TS.value_and_grad
+
+    def spanned(cfg_):
+        fn_ = vag(cfg_)
+
+        def run(params, batch):
+            lo = len(rankless.records)
+            out = fn_(params, batch)
+            spans.append((lo, len(rankless.records)))
+            return out
+        return run
+
+    TS.value_and_grad = spanned
+    try:
+        fn, args = lib.build_train_cell(cfg, SHAPE, rankless, MICRO)
+    finally:
+        TS.value_and_grad = vag
+    fn(*args)
+    return rankless.records, [r for lo, hi in spans
+                              for r in rankless.records[lo:hi]]
+
+
+@pytest.mark.parametrize("grid,arch", CASES, ids=IDS)
+def test_sharded_step_collectives_are_a_rankless_ranks(results, grid, arch):
+    """The first sharded step's collectives on real gloo rank 0 equal, in
+    order, kind, bytes and ring, a rankless rank 0's of the same step.
+    The gathers whose gradients the ring sums give them back as
+    reduce-scatters (``SCATTERING``), and no all-reduce of the forward
+    and backward has a reduce-scatter's ring and operand size, but the
+    model ring's output sums of [rows, seq, d] activations (the RG-LRU's
+    gathered input has that size)."""
+    port, _, _ = results
+    real = port[grid][("train", arch)][3]
+    cfg = port_cfg(_jcfg(arch))
+    records, backward = _rankless_step(cfg, grid)
+    assert real == records
+    scatters = [r for r in backward if r.kind == "reduce-scatter"]
+    assert len(scatters) == sum(r.kind == "reduce-scatter" for r in real)
+    assert bool(scatters) == (arch in SCATTERING[grid])
+    rows = BATCH // MICRO // GRIDS[grid][0]
+    activation = rows * SEQ * cfg.d_model * 4
+    summed = {(r.ranks, r.result_bytes) for r in backward
+              if r.kind == "all-reduce"}
+    for r in scatters:
+        assert r.result_bytes * len(r.ranks) == r.operand_bytes
+        if r.operand_bytes != activation:
+            assert (r.ranks, r.operand_bytes) not in summed, r
+
+
+def test_recurrentgemma_b_r_gap_is_the_references_own(results):
+    """Where ``_trees_close`` takes the port's unsharded step as the twin
+    (recurrentgemma's layer-1 ``rec/b_r`` [2] on 1 x 4), the reference's
+    own unsharded step lies beyond the bound of its sharded step too, so
+    no port can be held to the bound there: the first AdamW step moves
+    the entries whose gradients cancel to f32 noise differently in the
+    two programs, the second step's gradients differ by ~1e-8, and this
+    entry, whose two first moments half cancel, grows that to ~1.4 times
+    the bound. The port's unsharded step lies within the bound of the
+    reference's unsharded step, and its sharded step within the bound of
+    its unsharded one."""
+    port, ref, _ = results
+    jparams = ref["1x4"][("train", GAP_ARCH)][1]["params"]
+    i = [p for p, _ in tree.paths(_unsharded(GAP_ARCH)["params"])].index(
+        GAP_LEAF)
+    want = np.asarray(jax.tree.leaves(jparams)[i])
+    bound = REL * float(np.abs(want).max())
+    ref_un = np.asarray(jax.tree.leaves(ref["1x4"][("unsharded",
+                                                    GAP_ARCH)])[i])
+    port_un = tree.leaves(_unsharded(GAP_ARCH)["params"])[i].numpy()
+    port_sh = tree.leaves(port["1x4"][("train", GAP_ARCH)][1]["params"])[
+        i].numpy()
+    print(f"{GAP_LEAF} [{GAP_ENTRY}] (bound {bound:.2e}): |Ju - Js| "
+          f"{abs(ref_un - want)[GAP_ENTRY]:.2e}, |Ps - Js| "
+          f"{abs(port_sh - want)[GAP_ENTRY]:.2e}, |Pu - Ju| "
+          f"{abs(port_un - ref_un)[GAP_ENTRY]:.2e}, |Ps - Pu| "
+          f"{abs(port_sh - port_un)[GAP_ENTRY]:.2e}")
+    assert abs(ref_un[GAP_ENTRY] - want[GAP_ENTRY]) > bound
+    assert np.abs(port_un - ref_un).max() <= bound
+    assert np.abs(port_sh - port_un).max() <= bound
+
+
+@pytest.mark.parametrize("order", [o for o in GATE_ORDERS if o != "torch"])
+def test_recurrentgemma_b_r_gap_is_not_the_gates_op_order(results, order):
+    """The port's unsharded recurrentgemma step on 1 x 4's inputs with the
+    RG-LRU gates' sigmoids (and sqrt) differentiated in the reference's
+    order, ``g * (s * (1 - s))`` and ``g * (0.5 / s)``: like torch's
+    order, it lies within the bound of the reference's unsharded step and
+    within the bound of torch's order, and layer 1's ``rec/b_r`` [2]
+    stays beyond the bound of the reference's sharded step. The gap is
+    the two reference programs', not an op order of the port's."""
+    _, ref, _ = results
+    i = [p for p, _ in tree.paths(_unsharded(GAP_ARCH)["params"])].index(
+        GAP_LEAF)
+    js = np.asarray(jax.tree.leaves(
+        ref["1x4"][("train", GAP_ARCH)][1]["params"])[i])
+    ju = np.asarray(jax.tree.leaves(ref["1x4"][("unsharded",
+                                                GAP_ARCH)])[i])
+    bound = REL * float(np.abs(js).max())
+    torch_order = tree.leaves(_unsharded(GAP_ARCH)["params"])[i].numpy()
+    got = tree.leaves(_unsharded(GAP_ARCH, order)["params"])[i].numpy()
+    print(f"{GAP_LEAF} [{GAP_ENTRY}], gates in {order} order: |Pu - Ju| "
+          f"{abs(got - ju)[GAP_ENTRY]:.2e}, |Pu - Js| "
+          f"{abs(got - js)[GAP_ENTRY]:.2e} (torch's order "
+          f"{abs(torch_order - ju)[GAP_ENTRY]:.2e}, "
+          f"{abs(torch_order - js)[GAP_ENTRY]:.2e}), bound {bound:.2e}")
+    assert np.abs(got - ju).max() <= bound
+    assert np.abs(got - torch_order).max() <= bound
+    assert abs(got - js)[GAP_ENTRY] > bound
+    assert abs(torch_order - js)[GAP_ENTRY] > bound
+
+
+# the RG-LRU gates' elementwise ops whose backward torch writes in another
+# order than JAX: (JAX, torch, the input made from x ~ N(0, 1))
+GATE_OPS = {"sigmoid": (jax.nn.sigmoid, torch.sigmoid, lambda x: x),
+            "exp": (jnp.exp, torch.exp, lambda x: 0.1 * x - 1),
+            "sqrt": (jnp.sqrt, torch.sqrt, lambda x: 1 / (1 + np.exp(-x))),
+            "softplus": (jax.nn.softplus, torch.nn.functional.softplus,
+                         lambda x: x)}
+GATE_SHAPE = (4, SEQ, 64)
+
+
+def _gate_inputs():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(GATE_SHAPE).astype(np.float32)
+    g = (rng.standard_normal(GATE_SHAPE) * 1e-3).astype(np.float32)
+    return x, g
+
+
+@pytest.mark.parametrize("op", list(GATE_OPS))
+def test_rglru_gate_backward_is_the_references_to_an_ulp(op):
+    """Each elementwise op of ``rglru._gates`` differentiated on the same
+    seeded [4, 16, 64] inputs and cotangents, JAX against torch: the two
+    write the product in another order (JAX's sigmoid ``g * (s * (1 -
+    s))``, torch's ``g * (1 - s) * s``) and differ in many entries, but
+    by at most 8 float32 eps of JAX's gradient (measured: 5.6 eps at
+    most, the sigmoid's, where ``1 - s`` cancels)."""
+    jf, tf, make = GATE_OPS[op]
+    x, g = _gate_inputs()
+    v = make(x).astype(np.float32)
+    want = np.asarray(jax.jit(lambda a, c: jax.vjp(jf, a)[1](c)[0])(
+        jnp.asarray(v), jnp.asarray(g)))
+    t = torch.from_numpy(v.copy()).requires_grad_()
+    tf(t).backward(torch.from_numpy(g))
+    got = t.grad.numpy()
+    diff = np.abs(got - want)
+    rel = diff / np.abs(want) / np.finfo(np.float32).eps
+    print(f"{op}: {int((diff > 0).sum())} of {diff.size} differ, largest "
+          f"{diff.max():.2e} ({rel.max():.1f} eps)")
+    assert rel.max() <= 8, rel.max()
+
+
+def test_rglru_bias_gradient_token_sum_is_the_references_to_rounding():
+    """The gate biases' gradient sums [4, 16, 64] over batch and tokens:
+    torch's ``sum(dim=(0, 1))`` against XLA's ``reduce_sum`` of the same
+    array differ in most entries (the summation orders differ) but within
+    twice the 64-term rounding bound, 2 x 63 eps of the sum of the
+    terms' magnitudes."""
+    x, _ = _gate_inputs()
+    xs = x * np.float32(1e-3)
+    want = np.asarray(jax.jit(lambda a: jnp.sum(a, axis=(0, 1)))(
+        jnp.asarray(xs)))
+    got = torch.from_numpy(xs).sum(dim=(0, 1)).numpy()
+    diff = np.abs(got - want)
+    print(f"token sum: {int((diff > 0).sum())} of {diff.size} differ, "
+          f"largest {diff.max():.2e}")
+    n = GATE_SHAPE[0] * GATE_SHAPE[1]
+    bound = 2 * (n - 1) * np.finfo(np.float32).eps * np.abs(xs).sum((0, 1))
+    assert (diff <= bound).all(), (diff.max(), bound.min())
 
 
 def test_rank_matmul_flops_match_the_compiled_sharded_step(results):

@@ -312,3 +312,104 @@ def test_gather_wire_is_the_rings():
     assert rec.wire_bytes == 15 / 16 * 1024 * 1024 * 4
     grid.gather(blk, ("model", None), dst=0)
     assert grid.records[-1].wire_bytes == 255 / 256 * 256 * 64 * 1024 * 4
+
+
+SCATTER_AXES = [("data",), ("model",), ("data", "model"), ("model", "data")]
+SCATTER_CASES = [(a, d) for a in SCATTER_AXES for d in (0, 1)]
+SCATTER_IDS = [f"{'-'.join(a)}-dim{d}" for a, d in SCATTER_CASES]
+
+
+def _scatter_calls(grid, x) -> list:
+    """Each case's reduce-scatter of ``x`` beside the block of its psum."""
+    out = []
+    for axes, dim in SCATTER_CASES:
+        got = grid.reduce_scatter(x, axes, dim)
+        size = x.shape[dim] // grid.axis_size(axes)
+        want = grid.psum(x, axes).narrow(dim, grid.axis_index(axes) * size,
+                                         size)
+        out.append((got, want))
+    return out
+
+
+def _reduce_scatter_body():
+    """Every case on this rank (small integers, whose sums are exact):
+    each rank's flags summed over the grid, and this rank's records."""
+    import dataclasses
+    grid = dataclasses.replace(
+        mesh_lib.make_grid((2, 2), ("data", "model"), "cpu"), records=[])
+    gen = torch.Generator().manual_seed(grid.rank)
+    x = torch.randint(-8, 8, GATHER_SHAPE, generator=gen).float()
+    ok = torch.tensor([float(torch.equal(got, want) and got.is_contiguous()
+                             and not torch.equal(got, x.narrow(
+                                 d, 0, got.shape[d])))
+                       for (got, want), (_, d) in zip(
+                           _scatter_calls(grid, x), SCATTER_CASES)])
+    records = list(grid.records)
+    return grid.psum(ok).tolist(), records
+
+
+@pytest.fixture(scope="module")
+def scattered():
+    return mesh_lib.run_ranks(_reduce_scatter_body, 4)
+
+
+@pytest.mark.parametrize("case", range(len(SCATTER_CASES)), ids=SCATTER_IDS)
+def test_reduce_scatter_is_the_psums_block_on_gloo_ranks(scattered, case):
+    """On 4 gloo ranks of a 2 x 2 grid, ``DeviceGrid.reduce_scatter`` over
+    each ring (data, model, the pair in both orders: the ring (model,
+    data) is ranks [0, 2, 1, 3], not the group's sorted order) along dim
+    0 and dim 1 gives every rank the ``axis_index`` block of the ring's
+    psum, bitwise and contiguous, and not its own operand's block."""
+    agree, _ = scattered
+    assert agree[case] == 4
+
+
+def test_reduce_scatter_records_are_a_rankless_ranks(scattered):
+    """Rank 0's records of the reduce-scatters (and the psums beside
+    them) equal a rankless rank 0's of the same calls: a reduce-scatter's
+    operand is the whole tensor, its result one block."""
+    _, real = scattered
+    grid = mesh_lib.rankless_grid(mesh_lib.Layout((2, 2), ("data",
+                                                          "model")), 0)
+    _scatter_calls(grid, torch.empty(GATHER_SHAPE, device="meta"))
+    assert real == grid.records
+    scatters = [r for r in real if r.kind == "reduce-scatter"]
+    assert len(scatters) == len(SCATTER_CASES)
+    for r, (axes, _) in zip(scatters, SCATTER_CASES):
+        assert r.operand_bytes == 8 * 12 * 4
+        assert r.result_bytes == r.operand_bytes // len(r.ranks)
+    assert scatters[-1].ranks == (0, 2, 1, 3)
+
+
+def test_reduce_scatter_wire_is_the_ring():
+    """A rankless rank of 16 x 16 records a reduce-scatter over the model
+    ring as one collective over its 16 ranks: 15/16 of its operand on the
+    wire (an all-reduce of the same tensor sends twice that), the result
+    one block."""
+    grid = mesh_lib.rankless_grid(mesh_lib.production_layout(), 0)
+    g = torch.empty(1024, 1024, device="meta")
+    blk = grid.reduce_scatter(g, "model", 1)
+    assert tuple(blk.shape) == (1024, 64)
+    (rec,) = grid.records
+    assert rec.kind == "reduce-scatter"
+    assert rec.ranks == tuple(range(16))
+    assert rec.operand_bytes == 1024 * 1024 * 4
+    assert rec.result_bytes == 1024 * 64 * 4
+    assert rec.wire_bytes == 15 / 16 * 1024 * 1024 * 4
+    grid.psum(g, "model")
+    assert grid.records[-1].wire_bytes == 2 * rec.wire_bytes
+
+
+@pytest.mark.parametrize("axes", [("model",), ("model", "data")])
+def test_rankless_reduce_scatter_is_its_own_block(axes):
+    """A rankless rank on a real device (rank 5 of 16 x 16, on the CPU)
+    receives its ``axis_index`` block of its own operand, the sum a real
+    rank would get had every rank held this one's operand; over (model,
+    data) the ring is not in rank order."""
+    grid = mesh_lib.rankless_grid(mesh_lib.production_layout(), 5, "cpu")
+    n = grid.axis_size(axes)
+    x = torch.arange(4 * n * 3, dtype=torch.float32).reshape(4, n * 3)
+    got = grid.reduce_scatter(x, axes, 1)
+    k = grid.axis_index(axes)
+    assert k == (5 if axes == ("model",) else 80)
+    assert torch.equal(got, x[:, 3 * k:3 * (k + 1)])
