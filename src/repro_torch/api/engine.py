@@ -79,6 +79,7 @@ from repro_torch.potts import mesh as potts_mesh
 from repro_torch.potts import rules as potts_rules
 from repro_torch.potts import state as potts_state
 from repro_torch.potts import sweep as potts_sweep
+from repro_torch.spans import span
 
 _BACKENDS = ("xla", "pallas", "pallas_lines", "ref")
 _TOPOLOGIES = ("single", "mesh")
@@ -755,7 +756,9 @@ class IsingEngine:
             state, (m, e) = one_sweep_measured(state, key, arg, step)
             ms.append(m)
             es.append(e)
-        return state, torch.stack(ms, -1).cpu(), torch.stack(es, -1).cpu()
+        ms, es = torch.stack(ms, -1), torch.stack(es, -1)
+        with span("repro_torch.engine.series.sync"):
+            return state, ms.cpu(), es.cpu()
 
     def _run_kernel(self, state, key):
         """Kernel-backend chain: the lattice stays blocked through the run,
@@ -777,7 +780,9 @@ class IsingEngine:
         for step in range(c.n_sweeps):
             qb = kops.sweep_blocked(qb, key, step, c.beta, c.backend, rule)
             ms[step], es[step] = measure.blocked_stats(qb)
-        return kops._unblock_quads(qb), ms.cpu(), es.cpu()
+        final = kops._unblock_quads(qb)
+        with span("repro_torch.engine.series.sync"):
+            return final, ms.cpu(), es.cpu()
 
     def _run_tempering(self, state, key) -> EngineResult:
         c = self.cfg

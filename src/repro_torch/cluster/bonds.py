@@ -27,6 +27,7 @@ import torch
 from repro_torch import random as jr
 from repro_torch.core import update_rules
 from repro_torch.core import xla_f32
+from repro_torch.spans import span
 
 _U24 = 1 << 24
 
@@ -95,14 +96,15 @@ def fk_bonds(full, key, threshold, east=None, south=None, gi=None):
     ``east`` / ``south`` default to local torus rolls and ``gi`` to the
     single-device index grid; a decomposed lattice passes its halo
     neighbours and its patch's global indices instead."""
-    h, w = full.shape[-2:]
-    if east is None:
-        east = torch.roll(full, -1, -1)
-    if south is None:
-        south = torch.roll(full, -1, -2)
-    if gi is None:
-        gi = global_index(h, w, device=full.device)
-    gi = jr.shared(key, gi)
-    br = (full == east) & active(bond_bits(key, gi, 0), threshold)
-    bd = (full == south) & active(bond_bits(key, gi, 1), threshold)
-    return br, bd
+    with span("repro_torch.cluster.bonds"):
+        h, w = full.shape[-2:]
+        if east is None:
+            east = torch.roll(full, -1, -1)
+        if south is None:
+            south = torch.roll(full, -1, -2)
+        if gi is None:
+            gi = global_index(h, w, device=full.device)
+        gi = jr.shared(key, gi)
+        br = (full == east) & active(bond_bits(key, gi, 0), threshold)
+        bd = (full == south) & active(bond_bits(key, gi, 1), threshold)
+        return br, bd

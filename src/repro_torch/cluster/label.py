@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.spans import span
+
 _INT_MAX = torch.iinfo(torch.int32).max
 
 # label iterations (one changed-flag host sync each), summed over calls
@@ -63,18 +65,21 @@ def label_components(bond_right, bond_down, with_iters: bool = False,
                      rounds_per_iter: int = 2):
     """Canonical min-index labels of the bond graph, [..., h, w] int32;
     with ``with_iters`` also the iteration count (an int)."""
-    h, w = bond_right.shape[-2:]
-    lab = init_labels(h, w, bond_right.device).expand(bond_right.shape)
-    iters = 0
-    changed = True
-    while changed:
-        new = lab
-        for _ in range(rounds_per_iter):
-            new = pointer_jump(neighbor_min(new, bond_right, bond_down),
-                               jumps=1)
-        changed = bool(torch.any(new != lab).item())
-        lab = new
-        iters += 1
+    with span("repro_torch.cluster.label"):
+        h, w = bond_right.shape[-2:]
+        lab = init_labels(h, w, bond_right.device).expand(bond_right.shape)
+        iters = 0
+        changed = True
+        while changed:
+            new = lab
+            for _ in range(rounds_per_iter):
+                new = pointer_jump(neighbor_min(new, bond_right, bond_down),
+                                   jumps=1)
+            flag = torch.any(new != lab)
+            with span("repro_torch.cluster.label.sync"):
+                changed = bool(flag.item())
+            lab = new
+            iters += 1
     counters["iterations"] += iters
     if with_iters:
         return lab, iters

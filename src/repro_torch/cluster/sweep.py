@@ -22,6 +22,7 @@ from repro_torch import random as jr
 from repro_torch.cluster import bonds as B
 from repro_torch.cluster import label as LBL
 from repro_torch.core.measure import site_mean
+from repro_torch.spans import span
 
 _K_BONDS, _K_COINS, _K_SEED = 0, 1, 2
 
@@ -44,11 +45,12 @@ def wolff_seed_mask(lab, key) -> torch.Tensor:
 
 def _cluster_signs(full, lab, key, algorithm: str) -> torch.Tensor:
     """Bool flip mask per site from the per-cluster coin (or Wolff seed)."""
-    if algorithm == "swendsen_wang":
-        coin = B.counter_bits(jr.fold_in(key, _K_COINS), lab)
-        return ((coin >> 31) & 1) == 1
-    if algorithm == "wolff":
-        return wolff_seed_mask(lab, key)
+    with span("repro_torch.cluster.coins"):
+        if algorithm == "swendsen_wang":
+            coin = B.counter_bits(jr.fold_in(key, _K_COINS), lab)
+            return ((coin >> 31) & 1) == 1
+        if algorithm == "wolff":
+            return wolff_seed_mask(lab, key)
     raise ValueError(f"unknown cluster algorithm {algorithm!r}; "
                      "use 'swendsen_wang' or 'wolff'")
 

@@ -34,6 +34,7 @@ import torch
 from repro_torch.core import checkerboard as cb
 from repro_torch.core import lattice as L
 from repro_torch.core.xla_f32 import _fma
+from repro_torch.spans import span
 
 # ---------------------------------------------------------------------------
 # Per-sweep scalars
@@ -134,16 +135,17 @@ def blocked_totals(qb, n_spins: Optional[int] = None, kh=None,
     On a process grid pass the halo ``edges`` provider, the global
     ``n_spins`` and the grid's ``psum``; ``n_spins`` defaults to the local
     spin count (one device)."""
-    a, b, c, d = (qb[i] for i in range(4))
-    if kh is None:
-        kh = L.kernel_compact(a.shape[-1], a.dtype, a.device)
-    if edges is None:
-        edges = cb.default_edges
-    if n_spins is None:
-        n_spins = 4 * a.numel()
-    nn_b, nn_c = cb.nn_white(a, b, c, d, kh, edges)
-    return Totals(spin_total((a, b, c, d), psum),
-                  bond_total(b, c, nn_b, nn_c, psum), n_spins)
+    with span("repro_torch.measure.blocked_totals"):
+        a, b, c, d = (qb[i] for i in range(4))
+        if kh is None:
+            kh = L.kernel_compact(a.shape[-1], a.dtype, a.device)
+        if edges is None:
+            edges = cb.default_edges
+        if n_spins is None:
+            n_spins = 4 * a.numel()
+        nn_b, nn_c = cb.nn_white(a, b, c, d, kh, edges)
+        return Totals(spin_total((a, b, c, d), psum),
+                      bond_total(b, c, nn_b, nn_c, psum), n_spins)
 
 
 def blocked_stats(qb, n_spins: Optional[int] = None, kh=None,

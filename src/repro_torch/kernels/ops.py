@@ -22,15 +22,18 @@ from repro_torch import random as jr
 from repro_torch.core import lattice as L
 from repro_torch.kernels import checkerboard as kern
 from repro_torch.kernels import ref as kref
+from repro_torch.spans import span
 
 
 def _block_quads(quads: torch.Tensor, bs: int) -> torch.Tensor:
     """[4, R, C] -> contiguous [4, R/bs, C/bs, bs, bs]."""
-    return torch.stack([L.block(quads[i], bs) for i in range(4)])
+    with span("repro_torch.kernels.block"):
+        return torch.stack([L.block(quads[i], bs) for i in range(4)])
 
 
 def _unblock_quads(qb: torch.Tensor) -> torch.Tensor:
-    return torch.stack([L.unblock(qb[i]) for i in range(4)])
+    with span("repro_torch.kernels.unblock"):
+        return torch.stack([L.unblock(qb[i]) for i in range(4)])
 
 
 def color_key(key, step: int, color: int):
