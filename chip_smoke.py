@@ -6,9 +6,10 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. the card's name and power limit, from ``nvidia-smi``;
-2. build both CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` each, started together; each holds an operand form and a
-   keyed form of its kernel) and time the build, with registers and spills;
+2. build the CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` each, started together; each half-sweep library holds an
+   operand form and a keyed form of its kernel, the third the measurement
+   kernel) and time the build, with registers and spills;
 3. hold every form bitwise against its plain PyTorch version on the card:
    both colours, both rules, bf16 and f32, bs 12, 16, 24, 32, 64 and 128
    (12 and 24 take the generic instantiation), square and non-square tile
@@ -16,12 +17,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    each keyed form also against ``color_bits`` fed to the operand kernel;
    the kernels' device hash (``ising_threefry_bits``) against
    ``random._bits_lanes`` at counter 0 and across 2**32; and the card's
-   plain version against the CPU's at one small shape;
+   plain version against the CPU's at one small shape; the measurement
+   kernel (``kernels.measure.blocked_totals``) equal to its plain version
+   on the same shapes and dtypes, unaligned quads included;
 4. the main path at full size: ``IsingEngine(EngineConfig(size=20480,
    beta=0.4406868, backend=b, hot=True)).simulate(0)`` for b in pallas and
    pallas_lines, measured, with every launch count reset just before and
    read just after (2 per sweep for the backend's keyed kernel, 0 for every
-   other form); the two backends' final states bitwise equal; the explicit-
+   other form; 1 measurement kernel launch per sweep); the two backends'
+   final states bitwise equal; the explicit-
    bits path (``ops.update_color`` fed ``ops.color_bits``, the operand
    forms, 2 launches per sweep) equal to the keyed sweeps at 20480^2; the
    kernel path at 256^2 on the card equal to the CPU plain path (state and
@@ -130,14 +134,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     launches) against its bound and its plain version (the keyed forms'
     bound is bytes or integer issue, whichever is larger, from the
     instructions per site in the built library's SASS and the card's SM
-    clock), color_bits, blocked_stats, and the kernel path's sweeps per
-    second measured and not (flips/ns), peak memory.
+    clock), color_bits, the measurement kernel against its byte bound (2
+    bytes a site) and its plain version, blocked_stats, and the kernel
+    path's sweeps per second measured and not (flips/ns), peak memory.
 
 Every path of phases 4-9 runs with the kernel launch counts set to 0 just
 before and read just after: 2 per sweep for the form the path runs, 0 for
 the other forms and for the scenarios that run no kernel (the serving
 plane, the cluster/Potts meshes, Algorithm 1, rbg, every LM family, the
-LM sharding engine and phase 4f among them).
+LM sharding engine and phase 4f among them); the measurement kernel's
+count reads 1 a measured sweep on the kernel paths and 0 on every other
+(the grids' measurement takes the matmul chain).
 
 It prints one JSON line of kernel records, then the card line, then the
 contract line ``{"ok": true, "device": {...}}`` last. Without a CUDA device,
@@ -170,6 +177,7 @@ FLOPS_PER_SITE = 10          # 3 adds, 1 multiply, <= 4 compares, 1 convert
 
 TILES_CU = "src/repro_torch/kernels/csrc/checkerboard_tiles.cu"
 LINES_CU = "src/repro_torch/kernels/csrc/checkerboard_lines.cu"
+TOTALS_CU = "src/repro_torch/kernels/csrc/blocked_totals.cu"
 # name -> source, the TPU kernel it replaces, keyed form or not
 KERNELS = {
     "update_color_tiles": dict(
@@ -367,15 +375,59 @@ def phase_kernels_vs_plain(errs: dict) -> None:
             if exact_diff(dev.cpu(), cpu):
                 raise AssertionError(f"{name} plain: card != CPU")
     log("plain versions: card == CPU at [4, 2, 3, 16, 16]")
+    # the measurement kernel: exact int64 sums, equal to its plain version
+    from repro_torch.kernels import measure as kmeasure
+    n = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for bs in (12, 16, 24, 32, 64, 128):
+            for grid in grids:
+                qb, _ = blocked_state(200 + n, *grid, bs, dtype, "cuda")
+                got = kmeasure.blocked_totals(qb)
+                want = kmeasure.blocked_totals_plain(qb.cpu())
+                err = float((got.cpu() - want).abs().max())
+                errs["blocked_totals"] = max(errs["blocked_totals"], err)
+                if err:
+                    raise AssertionError(f"blocked_totals != plain: {dtype} "
+                                         f"bs={bs} grid={grid}: {got} "
+                                         f"{want}")
+                n += 1
+    buf = torch.empty(qb.numel() + 1, dtype=qb.dtype, device="cuda")
+    odd = buf[1:].view(qb.shape)
+    odd.copy_(qb)
+    if not torch.equal(kmeasure.blocked_totals(odd).cpu(), want):
+        raise AssertionError("blocked_totals: unaligned quads != plain")
+    log(f"measurement kernel vs plain on the card: {n} shapes and unaligned "
+        "quads, equal")
 
 
-def _read_launches(label: str, want: dict) -> dict:
+def reset_launches() -> None:
+    """Zero every kernel's launch count: the half-sweep forms' and the
+    measurement kernel's."""
+    from repro_torch.kernels import checkerboard as kern
+    from repro_torch.kernels import measure as kmeasure
+    kern.reset_launches()
+    kmeasure.reset_launches()
+
+
+def _read_totals_launches(label: str, want: int) -> None:
+    """The measurement kernel's launches since the last reset: one a
+    measured sweep on the kernel paths, 0 elsewhere."""
+    from repro_torch.kernels import measure as kmeasure
+    got = kmeasure.launches["blocked_totals"]
+    if got != want:
+        raise AssertionError(f"{label}: blocked_totals launches {got}, "
+                             f"want {want}")
+
+
+def _read_launches(label: str, want: dict, totals: int = 0) -> dict:
     """The launch counts since the last reset; ``want`` gives the forms
-    that must have launched, every other form must read 0."""
+    that must have launched, every other form must read 0; ``totals`` is
+    the measurement kernel's count."""
     from repro_torch.kernels import checkerboard as kern
     counts = dict(kern.launches)
     if counts != {name: want.get(name, 0) for name in counts}:
         raise AssertionError(f"{label}: launches {counts}, want {want}")
+    _read_totals_launches(label, totals)
     return counts
 
 
@@ -387,7 +439,6 @@ def phase_main_path(launches: dict) -> dict:
     from repro_torch import random as jr
     from repro_torch.api import EngineConfig, IsingEngine
     from repro_torch.core import sampler
-    from repro_torch.kernels import checkerboard as kern
     from repro_torch.kernels import ops
     finals, out = {}, {}
     torch.cuda.reset_peak_memory_stats()
@@ -395,14 +446,15 @@ def phase_main_path(launches: dict) -> dict:
         cfg = EngineConfig(size=SIZE, beta=BETA, n_sweeps=MAIN_SWEEPS,
                            backend=backend, hot=True, block_size=BS)
         eng = IsingEngine(cfg)
-        kern.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         res = eng.simulate(0)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = _read_launches(f"main path {backend}",
-                                {keyed: 2 * MAIN_SWEEPS})
+                                {keyed: 2 * MAIN_SWEEPS}, MAIN_SWEEPS)
         launches[keyed] = counts[keyed]
+        launches["blocked_totals"] = MAIN_SWEEPS
         m, e = res.magnetization, res.energy
         if not (torch.isfinite(m).all() and torch.isfinite(e).all()
                 and float(m.abs().max()) <= 1.0
@@ -431,7 +483,7 @@ def phase_main_path(launches: dict) -> dict:
         want = ops.run_sweeps(quads, key, n_sweeps=MAIN_SWEEPS, beta=BETA,
                               bs=BS, backend=backend)
         qb = ops._block_quads(quads, BS)
-        kern.reset_launches()
+        reset_launches()
         for step in range(MAIN_SWEEPS):
             for color in (0, 1):
                 bits = ops.color_bits(key, step, color, qb.shape[1:], "cuda")
@@ -595,19 +647,19 @@ def _no_launches(label: str) -> None:
     if any(kern.launches.values()):
         raise AssertionError(f"{label}: a kernel was launched on a path "
                              f"that has none: {kern.launches}")
+    _read_totals_launches(label, 0)
 
 
 def phase_scenarios_small() -> float:
     """Every non-kernel scenario: card == CPU, bitwise, at a small size."""
     import torch
     from repro_torch.api import IsingEngine
-    from repro_torch.kernels import checkerboard as kern
     beta, card = gap_beta()
     log(f"f32 table gap: torch.exp on the CPU differs from the XLA f32 "
         f"table at beta={beta} (the card's torch.exp differs there: {card});"
         " the port's chains use the latter")
     for i, (label, cfg) in enumerate(small_scenarios(beta)):
-        kern.reset_launches()
+        reset_launches()
         dev = IsingEngine(cfg, device="cuda").simulate(10 + i)
         torch.cuda.synchronize()
         _no_launches(label)
@@ -643,14 +695,13 @@ def phase_scenarios_full() -> dict:
     from repro_torch import random as jr
     from repro_torch.api import IsingEngine
     from repro_torch.cluster import label as LBL
-    from repro_torch.kernels import checkerboard as kern
     out = {}
     for label, cfg in full_scenarios():
         eng = IsingEngine(cfg, device="cuda")
         state = eng.init(jr.PRNGKey(21))
         eng.run(state, jr.PRNGKey(20))      # warm the allocator
         torch.cuda.synchronize()
-        kern.reset_launches()
+        reset_launches()
         LBL.reset_counters()
         t0 = time.perf_counter()
         res = eng.run(state, jr.PRNGKey(22))
@@ -863,7 +914,6 @@ def phase_grid_small() -> None:
     """The decomposed lattice at a small size: card == CPU, bitwise."""
     import torch
     from repro_torch.api import EngineConfig, IsingEngine
-    from repro_torch.kernels import checkerboard as kern
     cases = []
     for label, kw in GRID_PATHS:
         cases.append((label + " measured", EngineConfig(
@@ -877,7 +927,7 @@ def phase_grid_small() -> None:
             topology="mesh", mesh_shape=(1, 1), measure=measure)))
     cases += grid_cluster_scenarios(256, full=False)
     for i, (label, cfg) in enumerate(cases):
-        kern.reset_launches()
+        reset_launches()
         dev = IsingEngine(cfg, device="cuda").simulate(60 + i)
         torch.cuda.synchronize()
         _check_launches(label, cfg, cfg.n_sweeps)
@@ -972,7 +1022,7 @@ def phase_grid_full() -> dict:
             IsingEngine(dataclasses.replace(cfg, n_sweeps=1)).run(
                 state, jr.PRNGKey(71))
             torch.cuda.synchronize()
-            kern.reset_launches()
+            reset_launches()
             mesh_lib.reset_counters()
             t0 = time.perf_counter()
             res = eng.run(state, jr.PRNGKey(72))
@@ -1016,7 +1066,6 @@ def phase_grid_cluster_full(twins: dict) -> None:
     from repro_torch import random as jr
     from repro_torch.api import IsingEngine
     from repro_torch.cluster import label as LBL
-    from repro_torch.kernels import checkerboard as kern
     from repro_torch.launch import mesh as mesh_lib
     for label, cfg in grid_cluster_scenarios(0, full=True):
         eng = IsingEngine(cfg)
@@ -1026,7 +1075,7 @@ def phase_grid_cluster_full(twins: dict) -> None:
         IsingEngine(dataclasses.replace(cfg, n_sweeps=1)).run(
             state, jr.PRNGKey(91))
         torch.cuda.synchronize()
-        kern.reset_launches()
+        reset_launches()
         mesh_lib.reset_counters()
         LBL.reset_counters()
         t0 = time.perf_counter()
@@ -1061,14 +1110,13 @@ def phase_mesh3d_full(side: int = 512, sweeps: int = 2) -> None:
     import torch
     from repro_torch import random as jr
     from repro_torch.api import EngineConfig, IsingEngine
-    from repro_torch.kernels import checkerboard as kern
     cfg = EngineConfig(size=side, beta=0.2216546, dims=3, n_sweeps=sweeps,
                        topology="mesh", mesh_shape=(1, 1))
     eng = IsingEngine(cfg)
     state = eng.init(jr.PRNGKey(80))
     eng.run_sweeps(state, jr.PRNGKey(81), 1)
     torch.cuda.synchronize()
-    kern.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     res = eng.run(state, jr.PRNGKey(82))
     torch.cuda.synchronize()
@@ -1105,10 +1153,9 @@ def phase_serve_small() -> None:
     import numpy as np
     import torch
     from repro_torch.api import IsingEngine
-    from repro_torch.kernels import checkerboard as kern
     from repro_torch.serve import DONE, MCServeEngine, SimRequest
     reqs = [SimRequest(**kw) for kw in SERVE_MIX]
-    kern.reset_launches()
+    reset_launches()
     card = MCServeEngine(replica_width=4, chunk_sweeps=5).serve(reqs)
     torch.cuda.synchronize()
     _no_launches("serve small")
@@ -1139,13 +1186,12 @@ def phase_serve_full() -> None:
     Potts (q=2, 3; heat-bath, Metropolis), width 8, chunk 16; req/s,
     Msites/s, latency, ms per chunk of each bucket and the share of a
     chunk outside the sweeps; request 0 re-run standalone, bitwise."""
-    from repro_torch.kernels import checkerboard as kern
     from repro_torch.launch import serve
     argv = ["--requests", "64", "--sizes", "512,1024", "--models",
             "ising,potts", "--sweeps", str(SERVE_SWEEPS), "--samples", "4",
             "--replica-width", "8", "--chunk", "16", "--seed", "0",
             "--verify", "--quiet", "--chunk-stats"]
-    kern.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     if serve.main(argv):
         raise AssertionError("serve: the launcher's bitwise check failed")
@@ -1159,13 +1205,12 @@ def phase_launcher(size: int = 4096) -> None:
     a checkpoint every 3, a resume to 9 == a straight 9-sweep run."""
     import shutil
     import numpy as np
-    from repro_torch.kernels import checkerboard as kern
     from repro_torch.launch import simulate
     work = ROOT / "build" / "chip_smoke_launcher"
     shutil.rmtree(work, ignore_errors=True)
     common = ["--mesh", "1,1", "--blocks-per-device", str(size // 2 // BS),
               "--block-size", str(BS), "--chunk", "3"]
-    kern.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     for sweeps, where in ((6, "resumed"), (9, "resumed"), (9, "straight")):
         if simulate.main(common + ["--sweeps", str(sweeps), "--ckpt-dir",
@@ -1194,8 +1239,7 @@ def phase_algorithm1(size: int = 4096, bs: int = 128) -> None:
     from repro_torch.api import EngineConfig, IsingEngine
     from repro_torch.core import checkerboard as cb
     from repro_torch.core import lattice as L
-    from repro_torch.kernels import checkerboard as kern
-    kern.reset_launches()
+    reset_launches()
     for dtype in (torch.bfloat16, torch.float32):
         full = L.random_lattice(jr.PRNGKey(101), 256, 256, dtype, "cuda")
         for color in (0, 1):
@@ -1252,7 +1296,6 @@ def phase_rbg(sweeps: int = 3) -> None:
     from repro_torch import random as jr
     from repro_torch.core import lattice as L
     from repro_torch.distributed import ising as dising
-    from repro_torch.kernels import checkerboard as kern
     from repro_torch.launch import mesh as mesh_lib
     k = jr.fold_in(jr.PRNGKey(110), 3)
     a = dising.rbg_bits(k, (2, 80, 80, 128, 128), "cuda")
@@ -1295,7 +1338,7 @@ def phase_rbg(sweeps: int = 3) -> None:
                                      pipeline="opt", rng=rng)
         dising.make_run_sweeps_fn(grid, cfg, 1)(qb, jr.PRNGKey(112))
         torch.cuda.synchronize()
-        kern.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         out = dising.make_run_sweeps_fn(grid, cfg, sweeps)(qb,
                                                            jr.PRNGKey(113))
@@ -1518,10 +1561,9 @@ def phase_lm_small() -> None:
     and the CPU (``_lm_card_vs_cpu``: AdamW); then
     ``repro_torch.launch.train`` on the card resumed == straight."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import checkerboard as kern
     from repro_torch.launch import train as launch_train
     from repro_torch.train import optimizer as opt
-    kern.reset_launches()
+    reset_launches()
     cfg = dataclasses.replace(
         launch_train._reduce(get_config(LM_ARCH), 0.05), dtype="float32")
     errs, _ = _lm_card_vs_cpu("LM", cfg, opt.OptimizerConfig(
@@ -1589,9 +1631,8 @@ def phase_lm_small_families() -> None:
     phase prints the differences and the bounds). Then
     ``launch.train`` resumed == straight on the card, bitwise, for kimi
     (MoE: a deterministic dispatch and combine) and mamba2."""
-    from repro_torch.kernels import checkerboard as kern
     from repro_torch.train import optimizer as opt
-    kern.reset_launches()
+    reset_launches()
     for arch, cfg in _small_family_configs().items():
         t0 = time.perf_counter()
         errs, bounds = _lm_card_vs_cpu(arch, cfg, opt.OptimizerConfig(
@@ -1755,10 +1796,9 @@ def phase_lm_full() -> dict:
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import synthetic as syn
-    from repro_torch.kernels import checkerboard as kern
     from repro_torch.launch import train as launch_train
     from repro_torch.models import layers as LY
-    kern.reset_launches()
+    reset_launches()
     _free()
     torch.cuda.reset_peak_memory_stats()
     argv = ["--arch", LM_ARCH, "--scale", "1.0", "--seq", str(LM_SEQ),
@@ -1827,12 +1867,11 @@ def phase_lm_sharded(twin: dict) -> None:
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import synthetic as syn
     from repro_torch.distributed import compression as C
-    from repro_torch.kernels import checkerboard as kern
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import train as launch_train
     from repro_torch.train import train_step as TS
     card = card_line()
-    kern.reset_launches()
+    reset_launches()
     _free()
     torch.cuda.reset_peak_memory_stats()
     init_group()
@@ -1963,10 +2002,9 @@ def phase_ssm_full() -> float:
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import synthetic as syn
-    from repro_torch.kernels import checkerboard as kern
     from repro_torch.launch import train as launch_train
     from repro_torch.models import mamba2
-    kern.reset_launches()
+    reset_launches()
     _free()
     torch.cuda.reset_peak_memory_stats()
     argv = ["--arch", SSM_ARCH, "--scale", "1.0", "--seq", str(LM_SEQ),
@@ -2066,10 +2104,9 @@ def phase_rec_full() -> None:
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import synthetic as syn
-    from repro_torch.kernels import checkerboard as kern
     from repro_torch.models import rglru
     from repro_torch.models import transformer as T
-    kern.reset_launches()
+    reset_launches()
     _free()
     cfg = get_config(REC_ARCH)
     shape = (cfg.n_layers, cfg.pattern, cfg.d_model, cfg.n_heads,
@@ -2136,10 +2173,9 @@ def phase_moe_full() -> None:
     import torch
     from repro_torch import tree
     from repro_torch.configs import get_config
-    from repro_torch.kernels import checkerboard as kern
     from repro_torch.models import moe
     from repro_torch.models import transformer as T
-    kern.reset_launches()
+    reset_launches()
     _free()
     full = get_config(MOE_ARCH)
     shape = (full.d_model, full.n_heads, full.n_kv_heads, full.head_dim,
@@ -2653,10 +2689,9 @@ def phase_dryrun(qwen_step_s: float, ssm_step_s: float) -> None:
     import threading
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import checkerboard as kern
     from repro_torch.models import transformer as T
     from repro_torch.train import optimizer as opt
-    kern.reset_launches()
+    reset_launches()
     _free()
     cfg = get_config(LM_ARCH)
     gen = torch.Generator("cuda").manual_seed(0)
@@ -2803,6 +2838,7 @@ def phase_timing(launches: dict, errs: dict, sweeps: int = 20) -> tuple:
     from repro_torch import random as jr
     from repro_torch.core import measure
     from repro_torch.kernels import checkerboard as kern
+    from repro_torch.kernels import measure as kmeasure
     from repro_torch.kernels import ops
     mr = mc = SIZE // 2 // BS
     qb, bits = blocked_state(7, mr, mc, BS, torch.bfloat16, "cuda")
@@ -2853,26 +2889,50 @@ def phase_timing(launches: dict, errs: dict, sweeps: int = 20) -> tuple:
                     f"{sass['function']}: row loop {sass['per_site']:.4f} "
                     f"instructions per site, per 16 sites {sass['opcodes']}"
                     if sass else "row loop not found"))
-    kern.reset_launches()
+    reset_launches()
     bits_ms = time_ms(lambda: ops.color_bits(key, 0, 0, qb.shape[1:],
                                              "cuda"), reps=3, warmup=1)
-    stats_ms = time_ms(lambda: measure.blocked_stats(qb), reps=5)
+    # the measurement kernel: its bound is bytes, each spin read once
+    got = kmeasure.blocked_totals(qb)
+    want = kmeasure.blocked_totals_plain(qb)
+    errs["blocked_totals"] = max(errs["blocked_totals"],
+                                 float((got - want).abs().max()))
+    if errs["blocked_totals"]:
+        raise AssertionError("blocked_totals != plain at full size")
+    del got, want
+    totals_ms = time_ms(lambda: kmeasure.blocked_totals(qb), reps=50)
+    totals_plain_ms = time_ms(lambda: kmeasure.blocked_totals_plain(qb),
+                              reps=3, warmup=1)
+    totals_bound_ms = qb.numel() * qb.element_size() / HBM_BYTES_PER_S * 1e3
+    stats_ms = time_ms(lambda: measure.blocked_stats(qb), reps=20)
+    records.append(dict(
+        name="blocked_totals", route="cuda", source=TOTALS_CU,
+        replaces=None, launches=launches["blocked_totals"],
+        max_abs_err=errs["blocked_totals"], ms=totals_ms,
+        plain_ms=totals_plain_ms, bound_ms=totals_bound_ms, bound_by="bytes",
+        library_ms=None))
     log(f"time color_bits [2, {mr}, {mc}, {BS}, {BS}]: {bits_ms:.3f} ms per "
-        f"colour; blocked_stats: {stats_ms:.3f} ms per sweep")
+        f"colour; blocked_totals {totals_ms:.4f} ms, bound "
+        f"{totals_bound_ms:.4f} ms (bytes, 2 B a site), "
+        f"{totals_bound_ms / totals_ms:.1%} of bound; plain "
+        f"{totals_plain_ms:.3f} ms; blocked_stats (the kernel, its f32 "
+        f"sums and means): {stats_ms:.4f} ms per sweep")
     del qb, bits
     runs = {}
     for backend, (keyed, _) in BACKENDS.items():
         for measured in (False, True):
-            kern.reset_launches()
+            reset_launches()
             seconds = _timed_run(backend, measured, sweeps)
-            _read_launches(f"timed {backend}", {keyed: 2 * (sweeps + 1)})
+            _read_launches(f"timed {backend}", {keyed: 2 * (sweeps + 1)},
+                           sweeps + 1 if measured else 0)
             runs[backend, measured] = seconds
             log(f"time {'measured' if measured else 'measurement-free'} "
                 f"{backend} run {SIZE}^2 x {sweeps} sweeps: {seconds:.4f} s,"
                 f" {seconds / sweeps * 1e3:.3f} ms per sweep, "
                 f"{sweeps * SIZE ** 2 / seconds / 1e9:.4f} flips/ns end to "
                 "end")
-    return records, dict(bits_ms=bits_ms, stats_ms=stats_ms, runs=runs)
+    return records, dict(bits_ms=bits_ms, totals_ms=totals_ms,
+                         stats_ms=stats_ms, runs=runs)
 
 
 def main() -> int:
@@ -2898,8 +2958,8 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     phase_build()
-    errs = {name: 0.0 for name in KERNELS}
-    launches = {name: 0 for name in KERNELS}
+    errs = {name: 0.0 for name in (*KERNELS, "blocked_totals")}
+    launches = {name: 0 for name in (*KERNELS, "blocked_totals")}
     phase_kernels_vs_plain(errs)
     phase_main_path(launches)
     phase_small_and_chain()

@@ -12,7 +12,8 @@ same :class:`EngineConfigError`. Every scenario of the reference runs:
   is one launch of a CUDA kernel on the card
   (:mod:`repro_torch.kernels.checkerboard`; ``"ref"`` runs the plain
   oracle), and measured runs stream ``(m, E)`` via
-  ``measure.blocked_stats``;
+  ``measure.blocked_stats`` (on the card one launch of the measurement
+  kernel a sweep, :mod:`repro_torch.kernels.measure`);
 * ``"ensemble"``: R chains at the betas of ``cfg.betas``, replicas on the
   leading axis of the state ``[R, 4, r, c]``;
 * ``"tempering"``: replica exchange (:mod:`repro_torch.core.tempering`);

@@ -34,6 +34,7 @@ import torch
 from repro_torch.core import checkerboard as cb
 from repro_torch.core import lattice as L
 from repro_torch.core.xla_f32 import _fma
+from repro_torch.kernels import measure as kmeasure
 from repro_torch.spans import span
 
 # ---------------------------------------------------------------------------
@@ -134,15 +135,24 @@ def blocked_totals(qb, n_spins: Optional[int] = None, kh=None,
 
     On a process grid pass the halo ``edges`` provider, the global
     ``n_spins`` and the grid's ``psum``; ``n_spins`` defaults to the local
-    spin count (one device)."""
+    spin count (one device).
+
+    A CUDA stack on the torus (no ``kh``, default ``edges``) takes the
+    measurement kernel (:func:`repro_torch.kernels.measure.blocked_totals`):
+    the exact int64 sums, rounded once to f32. Below 2**24 those are the
+    bits of the f32 chain, which every other input takes."""
     with span("repro_torch.measure.blocked_totals"):
+        if n_spins is None:
+            n_spins = 4 * qb[0].numel()
+        if (isinstance(qb, torch.Tensor) and qb.is_cuda and kh is None
+                and edges in (None, cb.default_edges)):
+            m_sum, e_sum = kmeasure.blocked_totals(qb).to(torch.float32)
+            return Totals(_psum(m_sum, psum), _psum(e_sum, psum), n_spins)
         a, b, c, d = (qb[i] for i in range(4))
         if kh is None:
             kh = L.kernel_compact(a.shape[-1], a.dtype, a.device)
         if edges is None:
             edges = cb.default_edges
-        if n_spins is None:
-            n_spins = 4 * a.numel()
         nn_b, nn_c = cb.nn_white(a, b, c, d, kh, edges)
         return Totals(spin_total((a, b, c, d), psum),
                       bond_total(b, c, nn_b, nn_c, psum), n_spins)

@@ -26,6 +26,7 @@ DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 SOURCES = {
     "checkerboard_tiles": "checkerboard_tiles.cu",
     "checkerboard_lines": "checkerboard_lines.cu",
+    "blocked_totals": "blocked_totals.cu",
 }
 
 _LOADED: dict = {}

@@ -22,8 +22,8 @@ The spans, each where its work happens so that every caller gets it:
 * ``repro_torch.kernels.unblock``: ``kernels.ops._unblock_quads``, the
   copies of blocked quads back to [4, R, C];
 * ``repro_torch.measure.blocked_totals``: ``core.measure.blocked_totals``,
-  the white colour's neighbour sums (``nn_white``) and the spin and bond
-  sums;
+  the spin and bond sums: the measurement kernel on a CUDA stack, else
+  the white colour's neighbour sums (``nn_white``) and the f32 sums;
 * ``repro_torch.cluster.bonds``: ``cluster.bonds.fk_bonds``, the
   neighbour rolls and compares and the two bond hashes;
 * ``repro_torch.cluster.label``: ``cluster.label.label_components``, every

@@ -63,6 +63,11 @@ def pytest_configure(config):
         "but the assertions are tolerance-bounded, not bitwise, and the "
         "runs are long; CI executes them in a separate non-blocking job "
         "(-m statistical) so the blocking suite stays fast and exact.")
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs a CUDA kernel, which has no CPU form; skips without a "
+        "card (the test decides, never at import). On the card: "
+        "PYTHONPATH=src python -m pytest -m cuda tests/")
 
 
 @pytest.fixture(scope="session")
