@@ -47,6 +47,7 @@ from repro_torch.core import checkerboard as cb
 from repro_torch.core import lattice as L
 from repro_torch.core import update_rules
 from repro_torch.kernels import build
+from repro_torch.spans import span
 
 launches = {"update_color_tiles": 0, "update_color_lines": 0,
             "update_color_tiles_keyed": 0, "update_color_lines_keyed": 0}
@@ -249,9 +250,12 @@ def update_color_lines_plain(qb, bits, beta: float, color: int,
 
 
 def _lines(qb, color: int, edges=None):
+    """The colour's four halo lines, contiguous, inside the
+    ``repro_torch.kernels.lines`` span (a grid's ``edges`` exchange too)."""
     edges = cb.default_edges if edges is None else edges
-    return tuple(t.contiguous() for t in
-                 cb.edge_lines(qb[0], qb[1], qb[2], qb[3], color, edges))
+    with span("repro_torch.kernels.lines"):
+        return tuple(t.contiguous() for t in
+                     cb.edge_lines(qb[0], qb[1], qb[2], qb[3], color, edges))
 
 
 def update_color_lines(qb, bits, beta: float, color: int,

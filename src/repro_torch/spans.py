@@ -21,6 +21,11 @@ The spans, each where its work happens so that every caller gets it:
   compact quads [4, R, C] into the blocked layout the kernels take;
 * ``repro_torch.kernels.unblock``: ``kernels.ops._unblock_quads``, the
   copies of blocked quads back to [4, R, C];
+* ``repro_torch.kernels.lines``: ``kernels.checkerboard._lines``, the
+  four halo lines of one colour on the edge-line path
+  (``update_color_lines`` and ``update_color_lines_keyed``, never the tile
+  path); on a grid the ``edges`` provider, and so its exchange with the
+  neighbouring ranks, runs inside it;
 * ``repro_torch.measure.blocked_totals``: ``core.measure.blocked_totals``,
   the spin and bond sums: the measurement kernel on a CUDA stack, else
   the white colour's neighbour sums (``nn_white``) and the f32 sums;
