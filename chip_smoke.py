@@ -20,6 +20,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    plain version against the CPU's at one small shape; the measurement
    kernel (``kernels.measure.blocked_totals``) equal to its plain version
    on the same shapes and dtypes, unaligned quads included;
+3b. the fold-in kernel (``kernels.rng.fold_in_bits``, which
+    ``random.fold_in_bits`` launches for counters on the card) bitwise
+    against its eager int64 form (``random._fold_in_bits_eager``) at the
+    Swendsen-Wang cells' shapes: 5120^2 bond counters ``2 gi + d`` under
+    one key, the int32 labels of a 5120^2 lattice, and 16 x 4096^2 rows
+    that a key batch shares (stride 0); then one 5120^2 Swendsen-Wang
+    sweep through ``IsingEngine`` with the counts set to 0 just before
+    and read just after: 3 fold-in launches, 0 eager passes;
 4. the main path at full size: ``IsingEngine(EngineConfig(size=20480,
    beta=0.4406868, backend=b, hot=True)).simulate(0)`` for b in pallas and
    pallas_lines, measured, with every launch count reset just before and
@@ -135,7 +143,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     bound is bytes or integer issue, whichever is larger, from the
     instructions per site in the built library's SASS and the card's SM
     clock), color_bits, the measurement kernel against its byte bound (2
-    bytes a site) and its plain version, blocked_stats, and the kernel
+    bytes a site) and its plain version, the fold-in kernel at 5120^2
+    against its bound (bytes or integer issue, whichever is larger) and
+    its eager form, blocked_stats, and the kernel
     path's sweeps per second measured and not (flips/ns), peak memory.
 
 Every path of phases 4-9 runs with the kernel launch counts set to 0 just
@@ -145,6 +155,11 @@ plane, the cluster/Potts meshes, Algorithm 1, rbg, every LM family, the
 LM sharding engine and phase 4f among them); the measurement kernel's
 count reads 1 a measured sweep on the kernel paths and 0 on every other
 (the grids' measurement takes the matmul chain).
+
+The fold-in kernel's count (``kernels.rng.launches``) is read only in
+phase 3b: the cluster scenarios launch it 3 times a 2-D Swendsen-Wang
+sweep, and "no kernel" above speaks of the half-sweep and measurement
+forms.
 
 It prints one JSON line of kernel records, then the card line, then the
 contract line ``{"ok": true, "device": {...}}`` last. Without a CUDA device,
@@ -178,6 +193,8 @@ FLOPS_PER_SITE = 10          # 3 adds, 1 multiply, <= 4 compares, 1 convert
 TILES_CU = "src/repro_torch/kernels/csrc/checkerboard_tiles.cu"
 LINES_CU = "src/repro_torch/kernels/csrc/checkerboard_lines.cu"
 TOTALS_CU = "src/repro_torch/kernels/csrc/blocked_totals.cu"
+FOLD_CU = "src/repro_torch/kernels/csrc/threefry_fold.cu"
+SW_SIZE = 5120               # the Swendsen-Wang cells' lattice
 # name -> source, the TPU kernel it replaces, keyed form or not
 KERNELS = {
     "update_color_tiles": dict(
@@ -214,6 +231,11 @@ INT_PER_CLOCK, F32_PER_CLOCK, ISSUE_PER_CLOCK = 64, 128, 128
 # and 4 selects for the table, the convert of bits >> 8 with its 2^-24
 # folded into the table, u < t and the new spin's select).
 KEYED_ALU_ONLY, KEYED_ADDS, KEYED_F32 = 20 + 21 + 1, 20 + 5 + 2, 15
+# What one counter of the fold-in kernel needs: x1 alone of threefry2x32,
+# so the 20 rounds' rotations and xors with no output xor (ALU only), and
+# the 20 rounds' adds with the 5 injections of both key words (either
+# pipe).
+FOLD_ALU_ONLY, FOLD_ADDS = 20 + 20, 20 + 10
 
 
 def log(*args):
@@ -401,12 +423,87 @@ def phase_kernels_vs_plain(errs: dict) -> None:
 
 
 def reset_launches() -> None:
-    """Zero every kernel's launch count: the half-sweep forms' and the
-    measurement kernel's."""
+    """Zero every kernel's launch count: the half-sweep forms', the
+    measurement kernel's and the fold-in kernel's, and the count of
+    ``fold_in_bits``' eager passes."""
+    from repro_torch import random as jr
     from repro_torch.kernels import checkerboard as kern
     from repro_torch.kernels import measure as kmeasure
+    from repro_torch.kernels import rng
     kern.reset_launches()
     kmeasure.reset_launches()
+    rng.reset_launches()
+    jr.reset_counters()
+
+
+def _fold_in_equals_eager(label: str, key, c, errs: dict) -> None:
+    """``random.fold_in_bits`` of ``c`` on the card: one kernel launch, no
+    eager pass, bitwise the eager int64 form."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.kernels import rng
+    reset_launches()
+    got = jr.fold_in_bits(key, c)
+    counts = (rng.launches["fold_in_bits"], jr.counters["fold_in_bits_eager"])
+    want = jr._fold_in_bits_eager(key, c)
+    bad = int((got != want).sum())
+    errs["fold_in_bits"] = max(errs["fold_in_bits"], bad)
+    if counts != (1, 0) or bad or got.shape != c.shape:
+        raise AssertionError(f"fold-in {label}: (launches, eager passes) "
+                             f"{counts}, {bad} words differ")
+    del got, want
+    torch.cuda.synchronize()
+
+
+def phase_fold_in(errs: dict, launches: dict) -> None:
+    """The fold-in kernel bitwise against the eager form at the
+    Swendsen-Wang cells' shapes, and its launches in one 5120^2 sweep of
+    the cells' main path."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.api import EngineConfig, IsingEngine
+    from repro_torch.cluster import bonds as B
+    from repro_torch.cluster import label as LBL
+    from repro_torch.core import lattice as L
+    from repro_torch.kernels import rng
+    n = SW_SIZE
+    key = jr.fold_in(jr.PRNGKey(51), 7)
+    gi = B.global_index(n, n, device="cuda")
+    for d in (0, 1):
+        _fold_in_equals_eager(f"{n}^2 bonds d={d}", jr.fold_in(key, 0),
+                              gi * 2 + d, errs)
+    full = L.random_lattice(jr.PRNGKey(52), n, n, device="cuda")
+    br, bd = B.fk_bonds(full, jr.fold_in(key, 0),
+                        B.bond_threshold_u24(BETA))
+    lab = LBL.label_components(br, bd)
+    if lab.dtype != torch.int32:
+        raise AssertionError(f"labels are {lab.dtype}, not int32")
+    _fold_in_equals_eager(f"{n}^2 labels", jr.fold_in(key, 1), lab, errs)
+    del gi, full, br, bd, lab
+    keys = [jr.fold_in(key, i) for i in range(16)]
+    rows = jr.shared(keys, B.global_index(4096, 4096, device="cuda"))
+    if rows.stride(0) != 0:
+        raise AssertionError("jr.shared rows are not stride 0")
+    _fold_in_equals_eager("16 x 4096^2 shared rows", keys, rows, errs)
+    del rows
+    log(f"fold-in kernel == eager form on the card: {n}^2 bond counters "
+        f"(d = 0, 1), {n}^2 int32 labels, 16 x 4096^2 shared rows; one "
+        "launch each")
+    eng = IsingEngine(EngineConfig(
+        size=n, beta=BETA, n_sweeps=1, algorithm="swendsen_wang",
+        dtype="bfloat16", measure=True, hot=True), device="cuda")
+    eng.simulate(0)                         # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    eng.simulate(1)
+    torch.cuda.synchronize()
+    counts = (rng.launches["fold_in_bits"], jr.counters["fold_in_bits_eager"])
+    if counts != (3, 0):
+        raise AssertionError(f"one {n}^2 SW sweep: (fold-in launches, eager "
+                             f"passes) {counts}, want (3, 0)")
+    launches["fold_in_bits"] = counts[0]
+    log(f"one {n}^2 Swendsen-Wang sweep (IsingEngine, measured): "
+        f"{counts[0]} fold-in launches, {counts[1]} eager passes")
 
 
 def _read_totals_launches(label: str, want: int) -> None:
@@ -2833,6 +2930,42 @@ def _timed_run(backend: str, measure: bool, sweeps: int) -> float:
     return time.perf_counter() - t0
 
 
+def phase_fold_in_timing(errs: dict, launches: dict, clock_hz: float,
+                         sms: int) -> dict:
+    """The fold-in kernel at the Swendsen-Wang cells' shape (one bond
+    hash: 5120^2 counters under one key) against its bound and its eager
+    form; the bound is bytes (4 in and 4 out a counter) or integer issue
+    (``FOLD_*`` a counter), whichever is larger."""
+    from repro_torch import random as jr
+    from repro_torch.cluster import bonds as B
+    from repro_torch.kernels import rng
+    n = SW_SIZE * SW_SIZE
+    key = jr.fold_in(jr.PRNGKey(53), 0)
+    c = B.global_index(SW_SIZE, SW_SIZE, device="cuda") * 2
+    _fold_in_equals_eager(f"{SW_SIZE}^2 timed counters", key, c, errs)
+    ms = time_ms(lambda: rng.fold_in_bits(key, c), reps=50)
+    eager_ms = time_ms(lambda: jr._fold_in_bits_eager(key, c), reps=3,
+                       warmup=1)
+    t_bytes = n * 8 / HBM_BYTES_PER_S * 1e3
+    clocks = max(FOLD_ALU_ONLY / INT_PER_CLOCK,
+                 (FOLD_ALU_ONLY + FOLD_ADDS) / ISSUE_PER_CLOCK)
+    t_ops = n * clocks / (sms * clock_hz) * 1e3
+    b_ms, b_by = max((t_bytes, "bytes"), (t_ops, "integer issue"))
+    keys = [jr.fold_in(key, i) for i in range(16)]
+    rows = jr.shared(keys, B.global_index(4096, 4096, device="cuda"))
+    rows_ms = time_ms(lambda: rng.fold_in_bits(keys, rows), reps=10)
+    del c, rows
+    log(f"time fold_in_bits {SW_SIZE}^2: {ms:.4f} ms per launch, bound "
+        f"{b_ms:.4f} ms ({b_by}; bytes {t_bytes:.4f}, integer issue "
+        f"{t_ops:.4f}), {b_ms / ms:.1%} of bound; eager form "
+        f"{eager_ms:.3f} ms; 16 x 4096^2 shared rows {rows_ms:.4f} ms")
+    return dict(
+        name="fold_in_bits", route="cuda", source=FOLD_CU, replaces=None,
+        launches=launches["fold_in_bits"], max_abs_err=errs["fold_in_bits"],
+        ms=ms, plain_ms=eager_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)
+
+
 def phase_timing(launches: dict, errs: dict, sweeps: int = 20) -> tuple:
     import torch
     from repro_torch import random as jr
@@ -2905,6 +3038,7 @@ def phase_timing(launches: dict, errs: dict, sweeps: int = 20) -> tuple:
                               reps=3, warmup=1)
     totals_bound_ms = qb.numel() * qb.element_size() / HBM_BYTES_PER_S * 1e3
     stats_ms = time_ms(lambda: measure.blocked_stats(qb), reps=20)
+    fold = phase_fold_in_timing(errs, launches, clock_hz, sms)
     records.append(dict(
         name="blocked_totals", route="cuda", source=TOTALS_CU,
         replaces=None, launches=launches["blocked_totals"],
@@ -2917,6 +3051,7 @@ def phase_timing(launches: dict, errs: dict, sweeps: int = 20) -> tuple:
         f"{totals_bound_ms / totals_ms:.1%} of bound; plain "
         f"{totals_plain_ms:.3f} ms; blocked_stats (the kernel, its f32 "
         f"sums and means): {stats_ms:.4f} ms per sweep")
+    records.append(fold)
     del qb, bits
     runs = {}
     for backend, (keyed, _) in BACKENDS.items():
@@ -2958,9 +3093,12 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     phase_build()
-    errs = {name: 0.0 for name in (*KERNELS, "blocked_totals")}
-    launches = {name: 0 for name in (*KERNELS, "blocked_totals")}
+    errs = {name: 0.0 for name in (*KERNELS, "blocked_totals",
+                                   "fold_in_bits")}
+    launches = {name: 0 for name in (*KERNELS, "blocked_totals",
+                                     "fold_in_bits")}
     phase_kernels_vs_plain(errs)
+    phase_fold_in(errs, launches)
     phase_main_path(launches)
     phase_small_and_chain()
     t_lm = time.perf_counter()

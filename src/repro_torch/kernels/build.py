@@ -27,6 +27,7 @@ SOURCES = {
     "checkerboard_tiles": "checkerboard_tiles.cu",
     "checkerboard_lines": "checkerboard_lines.cu",
     "blocked_totals": "blocked_totals.cu",
+    "threefry_fold": "threefry_fold.cu",
 }
 
 _LOADED: dict = {}

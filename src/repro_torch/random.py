@@ -13,7 +13,11 @@ module reproduces the parts it uses:
   draw is ``out0 ^ out1``. Because every element is addressed by its
   counter, the draw is generated in chunks without changing a bit;
 * ``fold_in_bits`` is ``fold_in`` over a tensor of counters: the last key
-  word of ``fold_in(key, c)`` for every element ``c``;
+  word of ``fold_in(key, c)`` for every element ``c``. Counters on a
+  CUDA device take one hand-written kernel pass
+  (:func:`repro_torch.kernels.rng.fold_in_bits`, bitwise this module's
+  eager form); counters anywhere else run the eager form, and
+  ``counters["fold_in_bits_eager"]`` counts its passes;
 * a *key batch* is a list of keys, one per replica. ``fold_in`` maps over
   it on the host (with one value for all keys, or a list of one value per
   key), and every device draw under it gains a leading replica
@@ -36,6 +40,8 @@ Key = tuple  # (k0, k1), two ints in [0, 2**32)
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
+# passes of fold_in_bits' eager form (calls that took no device kernel)
+counters = {"fold_in_bits_eager": 0}
 # Elements per generated chunk: five int64 lanes of this length are live
 # at once (about 1.3 GiB at 2**25).
 CHUNK = 1 << 25
@@ -53,6 +59,11 @@ _FLOAT_LAYOUT = {
 # ---------------------------------------------------------------------------
 # Host-side keys
 # ---------------------------------------------------------------------------
+
+
+def reset_counters() -> None:
+    for k in counters:
+        counters[k] = 0
 
 
 def _rotl_int(x: int, r: int) -> int:
@@ -267,12 +278,33 @@ def fold_in_bits(key, counters: torch.Tensor) -> torch.Tensor:
     (int32 bit patterns, same shape): one threefry pass over the counter
     pairs ``(0, c)``. Equal counters give equal bits. Under a key batch
     ``counters`` is ``[R, ...]``, row i hashed under key i
-    (:func:`shared` gives every key the same counters)."""
-    flat = counters.reshape(_lead(key) + (-1,))
+    (:func:`shared` gives every key the same counters).
+
+    On a CUDA device the counters go to the device kernel
+    (:mod:`repro_torch.kernels.rng`), integer ones of another dtype cast
+    to int32 first (the cast keeps the low 32-bit word, as the eager
+    form's ``& 0xFFFFFFFF`` does); elsewhere they take the eager int64
+    form, :func:`_fold_in_bits_eager`, the oracle the kernel is held to."""
+    if counters.device.type == "cuda":
+        if counters.is_floating_point() or counters.is_complex():
+            raise TypeError(f"fold_in_bits takes integer counters, got "
+                            f"{counters.dtype}")
+        from repro_torch.kernels import rng
+        return rng.fold_in_bits(key, counters.to(torch.int32))
+    return _fold_in_bits_eager(key, counters)
+
+
+def _fold_in_bits_eager(key, values: torch.Tensor) -> torch.Tensor:
+    """:func:`fold_in_bits` in int64 lanes, on any device; counted in
+    ``counters["fold_in_bits_eager"]``."""
+    counters["fold_in_bits_eager"] += 1
+    flat = values.reshape(_lead(key) + (-1,))
     out = torch.empty(flat.shape, dtype=torch.int32, device=flat.device)
     for start, stop in _chunks(flat.shape[-1], _rows(key)):
-        x1 = flat[..., start:stop].to(torch.int64).bitwise_and_(_M32)
+        # a copy even of int64 counters: the lanes are updated in place
+        x1 = flat[..., start:stop].to(torch.int64, copy=True).bitwise_and_(
+            _M32)
         x0 = torch.zeros_like(x1)
         _, x1 = threefry2x32(key, x0, x1)
         out[..., start:stop] = _as_int32(x1)
-    return out.view(counters.shape)
+    return out.view(values.shape)

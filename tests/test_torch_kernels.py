@@ -186,9 +186,9 @@ def test_build_paths_follow_the_sources(tmp_path, monkeypatch):
     raises instead of falling back."""
     names = set(build.SOURCES)
     assert names == {"checkerboard_tiles", "checkerboard_lines",
-                     "blocked_totals"}
+                     "blocked_totals", "threefry_fold"}
     paths = {n: build.library_path(n) for n in names}
-    assert len(set(paths.values())) == 3
+    assert len(set(paths.values())) == 4
     assert all(p.parent == build.BUILD_DIR for p in paths.values())
     assert build.library_path("checkerboard_tiles") == \
         paths["checkerboard_tiles"]
