@@ -148,18 +148,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     its eager form, blocked_stats, and the kernel
     path's sweeps per second measured and not (flips/ns), peak memory.
 
-Every path of phases 4-9 runs with the kernel launch counts set to 0 just
-before and read just after: 2 per sweep for the form the path runs, 0 for
-the other forms and for the scenarios that run no kernel (the serving
-plane, the cluster/Potts meshes, Algorithm 1, rbg, every LM family, the
-LM sharding engine and phase 4f among them); the measurement kernel's
-count reads 1 a measured sweep on the kernel paths and 0 on every other
-(the grids' measurement takes the matmul chain).
+Every path of phases 4-9 runs with the kernel launch counts
+(``kernels.build.launches``) set to 0 just before and read just after: 2
+per sweep for the form the path runs, 0 for the other forms and for the
+scenarios that run no kernel (the serving plane, the cluster/Potts meshes,
+Algorithm 1, rbg, every LM family, the LM sharding engine and phase 4f
+among them); the measurement kernel's count reads 1 a measured sweep on
+the kernel paths and 0 on every other (the grids' measurement takes the
+matmul chain).
 
-The fold-in kernel's count (``kernels.rng.launches``) is read only in
-phase 3b: the cluster scenarios launch it 3 times a 2-D Swendsen-Wang
-sweep, and "no kernel" above speaks of the half-sweep and measurement
-forms.
+The fold-in kernel's count is read only in phase 3b: the cluster
+scenarios launch it 3 times a 2-D Swendsen-Wang sweep, and "no kernel"
+above speaks of the half-sweep and measurement forms.
 
 It prints one JSON line of kernel records, then the card line, then the
 contract line ``{"ok": true, "device": {...}}`` last. Without a CUDA device,
@@ -214,23 +214,11 @@ KERNELS = {
 BACKENDS = {"pallas": ("update_color_tiles_keyed", "update_color_tiles"),
             "pallas_lines": ("update_color_lines_keyed",
                              "update_color_lines")}
-# Issue rates per clock per SM, compute capability 9.0 (CUDA C++
-# Programming Guide, arithmetic instruction throughput): 32-bit integer
-# add, logic and shift 64 (the integer ALU; an add may also issue on the
-# FMA pipe as IMAD.IADD, 64); f32 add, multiply, compare and select 128;
-# and 4 warp schedulers x 32 lanes = 128 instructions of any kind.
-INT_PER_CLOCK, F32_PER_CLOCK, ISSUE_PER_CLOCK = 64, 128, 128
-# What one site of a keyed form needs, counted from the function and not
-# from the compiler's schedule: threefry2x32's 20 rotations (funnel
-# shifts), its 21 xors (20 rounds and the output x0 ^ x1) and the
-# bits >> 8 shift, which only the integer ALU issues; its 27 adds (one a
-# round, the key word into x1 before each of the 5 groups of rounds, both
-# words of the last injection; an injection into x0 folds into the next
-# round's 3-input add), which either pipe may issue; and the Metropolis
-# rule's 15 f32 operations (the 3 adds of the sum, sigma * nn, 4 compares
-# and 4 selects for the table, the convert of bits >> 8 with its 2^-24
-# folded into the table, u < t and the new spin's select).
-KEYED_ALU_ONLY, KEYED_ADDS, KEYED_F32 = 20 + 21 + 1, 20 + 5 + 2, 15
+# the launch counts phases 4-9 read: the half-sweep forms' and the
+# measurement kernel's
+SWEEP_LAUNCHES = (*KERNELS, "blocked_totals")
+# A keyed form's work a site and the card's instruction rates are the
+# benchmark's (perfbench/work.py), imported where the timing phase runs.
 # What one counter of the fold-in kernel needs: x1 alone of threefry2x32,
 # so the 20 rounds' rotations and xors with no output xor (ALU only), and
 # the 20 rounds' adds with the 5 injections of both key words (either
@@ -423,16 +411,11 @@ def phase_kernels_vs_plain(errs: dict) -> None:
 
 
 def reset_launches() -> None:
-    """Zero every kernel's launch count: the half-sweep forms', the
-    measurement kernel's and the fold-in kernel's, and the count of
+    """Zero every kernel's launch count and the count of
     ``fold_in_bits``' eager passes."""
     from repro_torch import random as jr
-    from repro_torch.kernels import checkerboard as kern
-    from repro_torch.kernels import measure as kmeasure
-    from repro_torch.kernels import rng
-    kern.reset_launches()
-    kmeasure.reset_launches()
-    rng.reset_launches()
+    from repro_torch.kernels import build
+    build.reset_launches()
     jr.reset_counters()
 
 
@@ -441,10 +424,11 @@ def _fold_in_equals_eager(label: str, key, c, errs: dict) -> None:
     eager pass, bitwise the eager int64 form."""
     import torch
     from repro_torch import random as jr
-    from repro_torch.kernels import rng
+    from repro_torch.kernels import build
     reset_launches()
     got = jr.fold_in_bits(key, c)
-    counts = (rng.launches["fold_in_bits"], jr.counters["fold_in_bits_eager"])
+    counts = (build.launches["fold_in_bits"],
+              jr.counters["fold_in_bits_eager"])
     want = jr._fold_in_bits_eager(key, c)
     bad = int((got != want).sum())
     errs["fold_in_bits"] = max(errs["fold_in_bits"], bad)
@@ -465,7 +449,7 @@ def phase_fold_in(errs: dict, launches: dict) -> None:
     from repro_torch.cluster import bonds as B
     from repro_torch.cluster import label as LBL
     from repro_torch.core import lattice as L
-    from repro_torch.kernels import rng
+    from repro_torch.kernels import build
     n = SW_SIZE
     key = jr.fold_in(jr.PRNGKey(51), 7)
     gi = B.global_index(n, n, device="cuda")
@@ -497,7 +481,8 @@ def phase_fold_in(errs: dict, launches: dict) -> None:
     reset_launches()
     eng.simulate(1)
     torch.cuda.synchronize()
-    counts = (rng.launches["fold_in_bits"], jr.counters["fold_in_bits_eager"])
+    counts = (build.launches["fold_in_bits"],
+              jr.counters["fold_in_bits_eager"])
     if counts != (3, 0):
         raise AssertionError(f"one {n}^2 SW sweep: (fold-in launches, eager "
                              f"passes) {counts}, want (3, 0)")
@@ -506,25 +491,14 @@ def phase_fold_in(errs: dict, launches: dict) -> None:
         f"{counts[0]} fold-in launches, {counts[1]} eager passes")
 
 
-def _read_totals_launches(label: str, want: int) -> None:
-    """The measurement kernel's launches since the last reset: one a
-    measured sweep on the kernel paths, 0 elsewhere."""
-    from repro_torch.kernels import measure as kmeasure
-    got = kmeasure.launches["blocked_totals"]
-    if got != want:
-        raise AssertionError(f"{label}: blocked_totals launches {got}, "
-                             f"want {want}")
-
-
-def _read_launches(label: str, want: dict, totals: int = 0) -> dict:
-    """The launch counts since the last reset; ``want`` gives the forms
-    that must have launched, every other form must read 0; ``totals`` is
-    the measurement kernel's count."""
-    from repro_torch.kernels import checkerboard as kern
-    counts = dict(kern.launches)
+def _read_launches(label: str, want: dict) -> dict:
+    """The half-sweep forms' and the measurement kernel's launch counts
+    since the last reset; ``want`` gives those that must have launched,
+    every other must read 0."""
+    from repro_torch.kernels import build
+    counts = {name: build.launches[name] for name in SWEEP_LAUNCHES}
     if counts != {name: want.get(name, 0) for name in counts}:
         raise AssertionError(f"{label}: launches {counts}, want {want}")
-    _read_totals_launches(label, totals)
     return counts
 
 
@@ -549,7 +523,8 @@ def phase_main_path(launches: dict) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = _read_launches(f"main path {backend}",
-                                {keyed: 2 * MAIN_SWEEPS}, MAIN_SWEEPS)
+                                {keyed: 2 * MAIN_SWEEPS,
+                                 "blocked_totals": MAIN_SWEEPS})
         launches[keyed] = counts[keyed]
         launches["blocked_totals"] = MAIN_SWEEPS
         m, e = res.magnetization, res.energy
@@ -740,11 +715,7 @@ def _same_result(a, b) -> bool:
 
 
 def _no_launches(label: str) -> None:
-    from repro_torch.kernels import checkerboard as kern
-    if any(kern.launches.values()):
-        raise AssertionError(f"{label}: a kernel was launched on a path "
-                             f"that has none: {kern.launches}")
-    _read_totals_launches(label, 0)
+    _read_launches(f"{label} (a path that launches none)", {})
 
 
 def phase_scenarios_small() -> float:
@@ -962,9 +933,9 @@ GRID_PATHS = [
 ]
 
 
-def _check_launches(label: str, cfg, sweeps: int) -> None:
-    _read_launches(label, {"update_color_lines_keyed": 2 * sweeps}
-                   if cfg.backend == "pallas_lines" else {})
+def _check_launches(label: str, cfg, sweeps: int) -> dict:
+    return _read_launches(label, {"update_color_lines_keyed": 2 * sweeps}
+                          if cfg.backend == "pallas_lines" else {})
 
 
 def grid_cluster_scenarios(size: int, full: bool) -> list:
@@ -1101,7 +1072,6 @@ def phase_grid_full() -> dict:
     import torch
     from repro_torch import random as jr
     from repro_torch.api import EngineConfig, IsingEngine
-    from repro_torch.kernels import checkerboard as kern
     from repro_torch.launch import mesh as mesh_lib
     out = {}
     for label, kw in GRID_PATHS:
@@ -1126,7 +1096,7 @@ def phase_grid_full() -> dict:
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             name = f"{label} measure={measure}"
-            _check_launches(name, cfg, MAIN_SWEEPS)
+            counts = _check_launches(name, cfg, MAIN_SWEEPS)
             reduces = mesh_lib.counters["all_reduce"]
             if measure and (reduces != 2 * MAIN_SWEEPS
                             or not all(map(math.isfinite,
@@ -1144,7 +1114,7 @@ def phase_grid_full() -> dict:
             log(f"grid {name} {SIZE}^2: {MAIN_SWEEPS} sweeps in "
                 f"{seconds:.4f} s, {seconds / MAIN_SWEEPS * 1e3:.3f} ms per "
                 f"sweep, {rate:.4f} flips/ns, launches "
-                f"{dict(kern.launches)}, all-reduces {reduces}, peak "
+                f"{counts}, all-reduces {reduces}, peak "
                 f"{peak / 2**30:.2f} GiB"
                 + (f", E={res.moments['E']:.6f}" if measure else ""))
             del eng, state, res
@@ -2877,22 +2847,13 @@ def keyed_sass(name: str) -> dict:
                 opcodes=opcodes)
 
 
-def keyed_clocks() -> dict:
-    """SM clocks per site of a keyed form, by limit: the ALU-only work at
-    the ALU's rate, the f32 rule at the FMA pipe's, and every instruction
-    at the issue rate. The adds go to whichever pipe is free; the two pipes
-    together then bound no tighter than the issue slots do."""
-    return dict(alu=KEYED_ALU_ONLY / INT_PER_CLOCK,
-                f32=KEYED_F32 / F32_PER_CLOCK,
-                issue=(KEYED_ALU_ONLY + KEYED_ADDS + KEYED_F32)
-                / ISSUE_PER_CLOCK)
-
-
 def bound(name: str, qb, bits, clock_hz=None, sms=None) -> tuple:
     """(bound_ms, bound_by) of one launch: each input read once, each
     output written once, against the HBM rate; and the operations, against
     the card's rate for them: about 10 f32 operations per site for an
-    operand form, ``keyed_clocks`` per site for a keyed form."""
+    operand form, the benchmark's ``work.site_clocks()`` per site for a
+    keyed form."""
+    from perfbench.work import site_clocks
     nq = qb[0].numel()
     e = qb.element_size()
     moved = 4 * nq * e + 2 * nq * e
@@ -2903,7 +2864,7 @@ def bound(name: str, qb, bits, clock_hz=None, sms=None) -> tuple:
         moved += 4 * mr * mc * bs * e
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     if KERNELS[name]["keyed"]:
-        clocks = max(keyed_clocks().values())
+        clocks = site_clocks()
         t_ops = 2 * nq * clocks / (sms * clock_hz) * 1e3
     else:
         t_ops = 2 * nq * FLOPS_PER_SITE / F32_FLOPS * 1e3
@@ -2936,6 +2897,7 @@ def phase_fold_in_timing(errs: dict, launches: dict, clock_hz: float,
     hash: 5120^2 counters under one key) against its bound and its eager
     form; the bound is bytes (4 in and 4 out a counter) or integer issue
     (``FOLD_*`` a counter), whichever is larger."""
+    from perfbench.work import INT_PER_CLOCK, ISSUE_PER_CLOCK
     from repro_torch import random as jr
     from repro_torch.cluster import bonds as B
     from repro_torch.kernels import rng
@@ -2968,6 +2930,7 @@ def phase_fold_in_timing(errs: dict, launches: dict, clock_hz: float,
 
 def phase_timing(launches: dict, errs: dict, sweeps: int = 20) -> tuple:
     import torch
+    from perfbench.work import SITE_ADDS, SITE_F32, SITE_INT_ONLY, site_clocks
     from repro_torch import random as jr
     from repro_torch.core import measure
     from repro_torch.kernels import checkerboard as kern
@@ -3016,8 +2979,8 @@ def phase_timing(launches: dict, errs: dict, sweeps: int = 20) -> tuple:
                if call_ms else ""))
         if keyed:
             sass = keyed_sass(name)
-            log(f"  bound per site: {KEYED_ALU_ONLY} ALU-only, {KEYED_ADDS}"
-                f" adds, {KEYED_F32} f32 -> SM clocks {keyed_clocks()} at "
+            log(f"  bound per site: {SITE_INT_ONLY} ALU-only, {SITE_ADDS} "
+                f"adds, {SITE_F32} f32 -> {site_clocks()} SM clocks at "
                 f"{clock_hz / 1e6:.0f} MHz x {sms} SMs; SASS " + (
                     f"{sass['function']}: row loop {sass['per_site']:.4f} "
                     f"instructions per site, per 16 sites {sass['opcodes']}"
@@ -3058,8 +3021,9 @@ def phase_timing(launches: dict, errs: dict, sweeps: int = 20) -> tuple:
         for measured in (False, True):
             reset_launches()
             seconds = _timed_run(backend, measured, sweeps)
-            _read_launches(f"timed {backend}", {keyed: 2 * (sweeps + 1)},
-                           sweeps + 1 if measured else 0)
+            _read_launches(f"timed {backend}", {
+                keyed: 2 * (sweeps + 1),
+                "blocked_totals": sweeps + 1 if measured else 0})
             runs[backend, measured] = seconds
             log(f"time {'measured' if measured else 'measurement-free'} "
                 f"{backend} run {SIZE}^2 x {sweeps} sweeps: {seconds:.4f} s,"

@@ -32,8 +32,8 @@ On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor,
 and only there, it runs the plain PyTorch version beside it, which repeats
 the kernel's arithmetic (four-neighbour adds in f32, then the rule's
 select and compare; the keyed form's plain version draws the bits with
-``random.bits`` first). Each wrapper counts its launches in a plain
-integer, ``launches[name]``.
+``random.bits`` first). Each launch is counted in ``build.launches`` under
+the wrapper's name.
 """
 from __future__ import annotations
 
@@ -49,19 +49,29 @@ from repro_torch.core import update_rules
 from repro_torch.kernels import build
 from repro_torch.spans import span
 
-launches = {"update_color_tiles": 0, "update_color_lines": 0,
-            "update_color_tiles_keyed": 0, "update_color_lines_keyed": 0}
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _RULE_CODE = {"metropolis_lut": 0, "metropolis_exp": 0, "heat_bath": 1}
 # The launch grid: blockIdx.y is the tile row, blockIdx.x a tile column
 # (or a group of them).
 _MAX_GRID_Y, _MAX_GRID_X = 65535, 2 ** 31 - 1
 
-
-def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+# The C entry points. A half-sweep takes the quads' pointer, the key's two
+# words (keyed form), its other pointers (bits; the four halo lines),
+# mr, mc, bs, color, rule and dtype, then the rule's five table floats.
+_P, _U32 = ctypes.c_void_p, ctypes.c_uint32
+_TAIL = (ctypes.c_int,) * 6 + (ctypes.c_float,) * 5
+_TILES = build.Entry("update_color_tiles", "checkerboard_tiles",
+                     "ising_update_tiles", (_P, _P) + _TAIL)
+_TILES_KEYED = build.Entry("update_color_tiles_keyed", "checkerboard_tiles",
+                           "ising_update_tiles_keyed", (_P, _U32, _U32)
+                           + _TAIL)
+_LINES = build.Entry("update_color_lines", "checkerboard_lines",
+                     "ising_update_lines", (_P,) * 6 + _TAIL)
+_LINES_KEYED = build.Entry("update_color_lines_keyed", "checkerboard_lines",
+                           "ising_update_lines_keyed", (_P, _U32, _U32)
+                           + (_P,) * 4 + _TAIL)
+_THREEFRY = build.Entry("threefry_bits", "checkerboard_tiles",
+                        "ising_threefry_bits",
+                        (_P, _U32, _U32, ctypes.c_uint64, ctypes.c_int64))
 
 
 # ---------------------------------------------------------------------------
@@ -73,7 +83,7 @@ def _check_quads(qb: torch.Tensor, color: int, rule: str) -> str:
     if qb.dim() != 5 or qb.shape[0] != 4 or qb.shape[3] != qb.shape[4]:
         raise ValueError(f"quads must be [4, mr, mc, bs, bs], got "
                          f"{tuple(qb.shape)}")
-    if qb.dtype not in _DTYPE_CODE:
+    if qb.dtype not in build.DTYPE_CODE:
         raise TypeError(f"quads must be float32 or bfloat16, got {qb.dtype}")
     if color not in (0, 1):
         raise ValueError(f"color must be 0 or 1, got {color}")
@@ -105,44 +115,6 @@ def _check_key(key) -> tuple:
         raise ValueError(f"key must be one colour key (k0, k1) of two uint32 "
                          f"words, got {key!r}")
     return int(key[0]), int(key[1])
-
-
-def _check_cuda(qb: torch.Tensor, *operands):
-    if qb.device.type != "cuda":
-        raise ValueError(f"the kernels run on CUDA or (plain) CPU tensors, "
-                         f"got {qb.device}")
-    for t in (qb,) + operands:
-        if not t.is_contiguous():
-            raise ValueError("kernel operands must be contiguous")
-    mr, mc = qb.shape[1], qb.shape[2]
-    if mr > _MAX_GRID_Y or mc > _MAX_GRID_X:
-        raise ValueError(f"tile grid {mr} x {mc} exceeds the launch grid "
-                         f"({_MAX_GRID_Y} tile rows)")
-
-
-def _table_args(rule: str, beta: float):
-    return [ctypes.c_float(float(v))
-            for v in update_rules.kernel_table(rule, beta)]
-
-
-def _kernel(lib_name: str, fn_name: str, n_ptrs: int, keyed: bool = False):
-    """The C entry point of a kernel library, with its signature set:
-    the quads' pointer, the key's two words (keyed form), the other
-    ``n_ptrs - 1`` pointers, six ints, five table floats, the stream."""
-    fn = getattr(build.load(lib_name), fn_name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_uint32] * (2 * keyed)
-                   + [ctypes.c_void_p] * (n_ptrs - 1) + [ctypes.c_int] * 6
-                   + [ctypes.c_float] * 5 + [ctypes.c_void_p])
-    return fn
-
-
-def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
 
 
 def _roles(color: int):
@@ -186,10 +158,9 @@ def update_color_tiles(qb, bits, beta: float, color: int,
                        rule: str = "metropolis_lut"):
     """One colour's half-sweep of ``qb`` in place (tile-fetch halo)."""
     rule = _check(qb, bits, color, rule)
-    if qb.device.type == "cpu":
+    if not build.on_cuda(_TILES, qb.device, qb, bits):
         return update_color_tiles_plain(qb, bits, beta, color, rule)
-    _check_cuda(qb, bits)
-    return _launch("update_color_tiles", qb, (bits,), color, rule, beta)
+    return _launch(_TILES, qb, (bits,), color, rule, beta)
 
 
 def update_color_tiles_keyed_plain(qb, key, beta: float, color: int,
@@ -207,11 +178,9 @@ def update_color_tiles_keyed(qb, key, beta: float, color: int,
     (``fold_in(fold_in(key, step), color)``)."""
     rule = _check_quads(qb, color, rule)
     key = _check_key(key)
-    if qb.device.type == "cpu":
+    if not build.on_cuda(_TILES_KEYED, qb.device, qb):
         return update_color_tiles_keyed_plain(qb, key, beta, color, rule)
-    _check_cuda(qb)
-    return _launch("update_color_tiles_keyed", qb, (), color, rule, beta,
-                   key)
+    return _launch(_TILES_KEYED, qb, (), color, rule, beta, key)
 
 
 # ---------------------------------------------------------------------------
@@ -265,11 +234,9 @@ def update_color_lines(qb, bits, beta: float, color: int,
     torus rolls)."""
     rule = _check(qb, bits, color, rule)
     lines = _lines(qb, color, edges)
-    if qb.device.type == "cpu":
+    if not build.on_cuda(_LINES, qb.device, qb, bits, *lines):
         return update_color_lines_plain(qb, bits, beta, color, rule, lines)
-    _check_cuda(qb, bits, *lines)
-    return _launch("update_color_lines", qb, (bits,) + lines, color, rule,
-                   beta)
+    return _launch(_LINES, qb, (bits,) + lines, color, rule, beta)
 
 
 def update_color_lines_keyed_plain(qb, key, beta: float, color: int,
@@ -287,70 +254,42 @@ def update_color_lines_keyed(qb, key, beta: float, color: int,
     rule = _check_quads(qb, color, rule)
     key = _check_key(key)
     lines = _lines(qb, color, edges)
-    if qb.device.type == "cpu":
+    if not build.on_cuda(_LINES_KEYED, qb.device, qb, *lines):
         return update_color_lines_keyed_plain(qb, key, beta, color, rule,
                                               lines)
-    _check_cuda(qb, *lines)
-    return _launch("update_color_lines_keyed", qb, lines, color, rule, beta,
-                   key)
+    return _launch(_LINES_KEYED, qb, lines, color, rule, beta, key)
 
 
 # ---------------------------------------------------------------------------
 # Launching
 # ---------------------------------------------------------------------------
 
-# wrapper name -> (library, C entry point)
-_ENTRY = {
-    "update_color_tiles": ("checkerboard_tiles", "ising_update_tiles"),
-    "update_color_tiles_keyed": ("checkerboard_tiles",
-                                 "ising_update_tiles_keyed"),
-    "update_color_lines": ("checkerboard_lines", "ising_update_lines"),
-    "update_color_lines_keyed": ("checkerboard_lines",
-                                 "ising_update_lines_keyed"),
-}
 
-
-def _launch(name: str, qb, operands: tuple, color: int, rule: str,
-            beta: float, key=None):
-    """Launch the kernel of wrapper ``name`` on ``qb`` (its other tensor
-    operands in the C entry's order; ``key`` for a keyed form) and count
-    the launch."""
-    lib, entry = _ENTRY[name]
-    keyed = key is not None
-    fn = _kernel(lib, entry, 1 + len(operands), keyed)
+def _launch(entry: build.Entry, qb, operands: tuple, color: int, rule: str,
+            beta: float, key=()):
+    """Launch a half-sweep ``entry`` on ``qb`` (its other tensor operands
+    in the C entry's order; ``key`` for a keyed form)."""
     _, mr, mc, bs, _ = qb.shape
-    with torch.cuda.device(qb.device):
-        err = fn(_ptr(qb), *(key if keyed else ()),
-                 *(_ptr(t) for t in operands), mr, mc, bs, color,
-                 _RULE_CODE[rule], _DTYPE_CODE[qb.dtype],
-                 *_table_args(rule, beta), _stream(qb.device))
-    if err:
-        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
-    launches[name] += 1
+    if mr > _MAX_GRID_Y or mc > _MAX_GRID_X:
+        raise ValueError(f"tile grid {mr} x {mc} exceeds the launch grid "
+                         f"({_MAX_GRID_Y} tile rows)")
+    build.launch(entry, qb.device, qb, *key, *operands, mr, mc, bs, color,
+                 _RULE_CODE[rule], build.DTYPE_CODE[qb.dtype],
+                 *update_rules.kernel_table(rule, beta).tolist())
     return qb
 
 
 def threefry_bits(key, start: int, n: int, device) -> torch.Tensor:
     """The 32-bit draws of counters ``[start, start + n)`` under ``key``
     (int32 bit patterns): on a CUDA device the kernels' own device hash
-    (``ising_threefry_bits``, uncounted: no sweep calls it), on the CPU
-    ``random._bits_lanes``. It holds the hash against the port's RNG on the
-    card."""
+    (``ising_threefry_bits``, counted in ``build.launches["threefry_bits"]``;
+    no sweep calls it), on the CPU ``random._bits_lanes``. It holds the hash
+    against the port's RNG on the card."""
     k0, k1 = _check_key(key)
     device = torch.device(device)
-    if device.type == "cpu":
+    if not build.on_cuda(_THREEFRY, device):
         return jr._as_int32(jr._bits_lanes((k0, k1), start, start + n,
                                            device))
-    if device.type != "cuda":
-        raise ValueError(f"threefry_bits runs on CUDA or CPU, got {device}")
     out = torch.empty(n, dtype=torch.int32, device=device)
-    fn = getattr(build.load("checkerboard_tiles"), "ising_threefry_bits")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32,
-                   ctypes.c_uint64, ctypes.c_int64, ctypes.c_void_p]
-    with torch.cuda.device(device):
-        err = fn(_ptr(out), k0, k1, start, n, _stream(device))
-    if err:
-        raise RuntimeError(f"ising_threefry_bits launch failed: "
-                           f"cudaError {err}")
+    build.launch(_THREEFRY, device, out, k0, k1, start, n)
     return out

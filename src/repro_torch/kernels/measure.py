@@ -16,8 +16,8 @@ tensor, and only there, it runs :func:`blocked_totals_plain`, which repeats
 the kernel's integer arithmetic in int64: sigma = 1 - 2 s for a spin's sign
 bit s, so ``sigma_x sigma_y = 1 - 2 (s_x ^ s_y)``, and the sums are
 ``4 n - 2 (negative spins)`` and ``8 n - 2 (unsatisfied bonds)`` over the
-``n`` sites of a quad. The wrapper counts its launches in
-``launches["blocked_totals"]``.
+``n`` sites of a quad. Each launch is counted in
+``build.launches["blocked_totals"]``.
 """
 from __future__ import annotations
 
@@ -27,21 +27,18 @@ import torch
 
 from repro_torch.core import lattice as L
 from repro_torch.kernels import build
-from repro_torch.kernels.checkerboard import _DTYPE_CODE, _ptr, _stream
 
-launches = {"blocked_totals": 0}
-
-
-def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+# the quads' and the output's pointers, mr, mc, bs and dtype
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_TOTALS = build.Entry("blocked_totals", "blocked_totals",
+                      "ising_blocked_totals", (_P, _P, _I, _I, _I, _I))
 
 
 def _check(qb: torch.Tensor) -> None:
     if qb.dim() != 5 or qb.shape[0] != 4 or qb.shape[3] != qb.shape[4]:
         raise ValueError(f"quads must be [4, mr, mc, bs, bs], got "
                          f"{tuple(qb.shape)}")
-    if qb.dtype not in _DTYPE_CODE:
+    if qb.dtype not in build.DTYPE_CODE:
         raise TypeError(f"quads must be float32 or bfloat16, got {qb.dtype}")
 
 
@@ -60,31 +57,13 @@ def blocked_totals_plain(qb: torch.Tensor) -> torch.Tensor:
     return torch.stack([4 * n - 2 * neg, 8 * n - 2 * unsat])
 
 
-def _entry():
-    fn = build.load("blocked_totals").ising_blocked_totals
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    return fn
-
-
 def blocked_totals(qb: torch.Tensor) -> torch.Tensor:
     """int64 ``[m_sum, e_sum]`` of blocked quads, on ``qb``'s device."""
     _check(qb)
-    if qb.device.type == "cpu":
+    if not build.on_cuda(_TOTALS, qb.device, qb):
         return blocked_totals_plain(qb)
-    if qb.device.type != "cuda":
-        raise ValueError(f"the kernel runs on CUDA or (plain) CPU tensors, "
-                         f"got {qb.device}")
-    if not qb.is_contiguous():
-        raise ValueError("the kernel's quads must be contiguous")
     _, mr, mc, bs, _ = qb.shape
     out = torch.empty(2, dtype=torch.int64, device=qb.device)
-    with torch.cuda.device(qb.device):
-        err = _entry()(_ptr(qb), _ptr(out), mr, mc, bs,
-                       _DTYPE_CODE[qb.dtype], _stream(qb.device))
-    if err:
-        raise RuntimeError(f"ising_blocked_totals launch failed: "
-                           f"cudaError {err}")
-    launches["blocked_totals"] += 1
+    build.launch(_TOTALS, qb.device, qb, out, mr, mc, bs,
+                 build.DTYPE_CODE[qb.dtype])
     return out

@@ -10,8 +10,10 @@ shares (``random.shared``, stride 0) are read in place. Source:
 the hash to XLA.
 
 ``random.fold_in_bits`` launches it for every counter tensor on a CUDA
-device (integer counters of another dtype cast to int32 first); on the CPU
-it runs its eager int64 form, the oracle the tests hold the kernel to. The wrapper counts its launches in ``launches["fold_in_bits"]``.
+device (integer counters of another dtype cast to int32 first). On CPU
+counters the wrapper runs the eager int64 form,
+``random._fold_in_bits_eager``, the oracle the tests hold the kernel to.
+Each launch is counted in ``build.launches["fold_in_bits"]``.
 """
 from __future__ import annotations
 
@@ -21,23 +23,12 @@ import torch
 
 from repro_torch import random as jr
 from repro_torch.kernels import build
-from repro_torch.kernels.checkerboard import _ptr, _stream
 
-launches = {"fold_in_bits": 0}
-
-
-def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
-
-
-def _entry():
-    fn = build.load("threefry_fold").ising_fold_in_bits
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_uint32,
-                   ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p]
-    return fn
+# the counters' and the output's pointers, n, the row stride, rows, one
+# key's two words, and the pointer of a key batch's [R, 2] words (or null)
+_P, _I64, _U32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint32
+_FOLD = build.Entry("fold_in_bits", "threefry_fold", "ising_fold_in_bits",
+                    (_P, _P, _I64, _I64, ctypes.c_int, _U32, _U32, _P))
 
 
 def _key_pairs(keys, device) -> torch.Tensor:
@@ -49,12 +40,14 @@ def _key_pairs(keys, device) -> torch.Tensor:
 
 
 def fold_in_bits(key, counters: torch.Tensor) -> torch.Tensor:
-    """``fold_in(key, c)[-1]`` for every element of int32 ``counters`` on a
-    CUDA device (int32 bit patterns, the same shape); under a key batch
-    ``counters`` is ``[R, ...]``, row i hashed under key i."""
-    if counters.device.type != "cuda" or counters.dtype != torch.int32:
-        raise ValueError(f"the kernel takes int32 counters on a CUDA device, "
-                         f"got {counters.dtype} on {counters.device}")
+    """``fold_in(key, c)[-1]`` for every element of int32 ``counters``
+    (int32 bit patterns, the same shape); under a key batch ``counters`` is
+    ``[R, ...]``, row i hashed under key i."""
+    if counters.dtype != torch.int32:
+        raise TypeError(f"the kernel takes int32 counters, got "
+                        f"{counters.dtype}")
+    if not build.on_cuda(_FOLD, counters.device):
+        return jr._fold_in_bits_eager(key, counters)
     batch = jr.is_batch(key)
     flat = counters.reshape(jr._lead(key) + (-1,))
     n = flat.shape[-1]
@@ -66,16 +59,10 @@ def fold_in_bits(key, counters: torch.Tensor) -> torch.Tensor:
         return out.view(counters.shape)
     if batch:
         k0 = k1 = 0
-        pairs = _key_pairs(key, counters.device)
-        keys, row_stride = _ptr(pairs), flat.stride(0)
+        keys, row_stride = _key_pairs(key, counters.device), flat.stride(0)
     else:
         k0, k1 = jr.key_data(key)
         keys, row_stride = None, n
-    with torch.cuda.device(counters.device):
-        err = _entry()(_ptr(flat), _ptr(out), n, row_stride, rows, k0, k1,
-                       keys, _stream(counters.device))
-    if err:
-        raise RuntimeError(f"ising_fold_in_bits launch failed: "
-                           f"cudaError {err}")
-    launches["fold_in_bits"] += 1
+    build.launch(_FOLD, counters.device, flat, out, n, row_stride, rows, k0,
+                 k1, keys)
     return out.view(counters.shape)

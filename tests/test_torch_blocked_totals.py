@@ -11,12 +11,14 @@ and skip without one. This file imports no JAX.
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro_torch import random as jr  # noqa: E402
 from repro_torch.core import checkerboard as cb  # noqa: E402
 from repro_torch.core import measure as M  # noqa: E402
 from repro_torch.core import observables as O  # noqa: E402
 from repro_torch.core import sampler  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import measure as K  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
@@ -106,7 +108,7 @@ def test_cpu_and_halo_tuples_take_the_chain(monkeypatch):
 
     qb = ops._block_quads(_quads(3, 64, 64), 16)
     chain = M.blocked_totals(qb)
-    K.reset_launches()
+    build.reset_launches()
     monkeypatch.setattr(K, "blocked_totals", refuse)
     got = M.blocked_totals(qb)
     assert got.m_sum.dtype == torch.float32
@@ -121,7 +123,7 @@ def test_cpu_and_halo_tuples_take_the_chain(monkeypatch):
         (float(chain.m_sum), float(chain.e_sum))
     assert [float(x) for x in M.blocked_stats(qb)] == \
         [float(x) for x in chain.means()]
-    assert K.launches == {"blocked_totals": 0}
+    assert build.launches == dict.fromkeys(build.launches, 0)
 
 
 @pytest.mark.parametrize("shape", [(3, 2, 2, 16, 16), (4, 2, 2, 16, 8),
@@ -135,12 +137,6 @@ def test_wrapper_refuses_a_wrong_shape(shape):
 def test_wrapper_refuses_a_wrong_dtype(dtype):
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         K.blocked_totals(torch.ones((4, 1, 1, 16, 16), dtype=dtype))
-
-
-def test_wrapper_refuses_another_device():
-    qb = torch.ones((4, 1, 1, 16, 16), dtype=torch.bfloat16, device="meta")
-    with pytest.raises(ValueError, match="CUDA or"):
-        K.blocked_totals(qb)
 
 
 # ---------------------------------------------------------------------------
@@ -163,11 +159,11 @@ def cuda():
 def test_kernel_equals_plain(cuda, shape, bs, dtype):
     quads = _quads(shape[0] + bs, *shape, dtype, device=cuda)
     qb = ops._block_quads(quads, bs)
-    K.reset_launches()
+    build.reset_launches()
     got = K.blocked_totals(qb)
     assert got.device.type == "cuda" and got.dtype == torch.int64
     assert got.tolist() == K.blocked_totals_plain(qb.cpu()).tolist()
-    assert K.launches == {"blocked_totals": 1}
+    assert build.launches["blocked_totals"] == 1
 
 
 @pytest.mark.cuda
@@ -223,9 +219,9 @@ def test_measured_engine_series_equal_the_chain(cuda, backend):
     eng = IsingEngine(cfg, device=cuda)
     key = jr.PRNGKey(5)
     state = eng.init(jr.PRNGKey(6))
-    K.reset_launches()
+    build.reset_launches()
     res = eng.run(state, key)
-    assert K.launches == {"blocked_totals": sweeps}
+    assert build.launches["blocked_totals"] == sweeps
     qb = ops._block_quads(state.to(cuda), 128)
     ms, es = [], []
     for step in range(sweeps):
@@ -235,4 +231,4 @@ def test_measured_engine_series_equal_the_chain(cuda, backend):
         es.append(float(e))
     assert res.magnetization.tolist() == ms
     assert res.energy.tolist() == es
-    assert K.launches == {"blocked_totals": sweeps}
+    assert build.launches["blocked_totals"] == sweeps

@@ -2,10 +2,13 @@
 Swendsen-Wang / Wolff) and the ``"cluster"`` scenario, scalar and
 multi-beta, against ``repro.cluster``, the JAX engine and the scipy
 connected-components oracle of ``tests/test_cluster.py``, bitwise."""
+import functools
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -209,6 +212,13 @@ def test_sw_flips_whole_clusters_and_wolff_one():
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_engine(cfg: JConfig) -> JEngine:
+    """One reference engine a config: its compiled chain serves every
+    seed, so no test compiles the same chain twice."""
+    return JEngine(cfg)
+
+
 @pytest.mark.parametrize("measure", [True, False])
 @pytest.mark.parametrize("algo", ["swendsen_wang", "wolff"])
 @pytest.mark.parametrize("betas", [None, (0.35, BETA_C, 0.55)])
@@ -218,7 +228,7 @@ def test_engine_cluster_matches_jax(betas, algo, measure):
     kw.update(dict(betas=betas) if betas else dict(beta=BETA_C))
     for seed in (0, 3):
         got = IsingEngine(EngineConfig(**kw), device="cpu").simulate(seed)
-        want = JEngine(JConfig(**kw)).simulate(seed)
+        want = _jax_engine(JConfig(**kw)).simulate(seed)
         np.testing.assert_array_equal(bridge.to_numpy(got.state),
                                       np.asarray(want.state, np.float32))
         assert got.extra == want.extra

@@ -2,10 +2,13 @@
 ``"tempering"`` scenarios, ``phase_curve``, ``run_chains_batched`` and
 ``measure_curve`` against the JAX package from the same seeds, bitwise
 (state, per-sweep m and E, moments, extras, swap decisions)."""
+import functools
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -27,6 +30,13 @@ from repro_torch.core import tempering as T  # noqa: E402
 
 SIZE, BLOCK, SWEEPS = 16, 4, 4
 BETAS = (0.3, 0.4406868, 0.6)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_engine(cfg: JConfig) -> JEngine:
+    """One reference engine a config: its compiled chain serves every
+    seed, so no test compiles the same chain twice."""
+    return JEngine(cfg)
 
 
 def _np(t):
@@ -55,7 +65,7 @@ def _both(seed=0, **kw):
     base = dict(size=SIZE, betas=BETAS, n_sweeps=SWEEPS, block_size=BLOCK)
     base.update(kw)
     got = IsingEngine(EngineConfig(**base), device="cpu").simulate(seed)
-    want = JEngine(JConfig(**base)).simulate(seed)
+    want = _jax_engine(JConfig(**base)).simulate(seed)
     return got, want
 
 

@@ -10,11 +10,13 @@ no JAX.
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro_torch import random as jr  # noqa: E402
 from repro_torch.api import EngineConfig, IsingEngine  # noqa: E402
 from repro_torch.cluster import bonds as B  # noqa: E402
 from repro_torch.cluster import sweep as CS  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import rng  # noqa: E402
 
 EDGES = [0, 1, 2, 3, 2 ** 31 - 1, -1, -2 ** 31, -(2 ** 31) + 1, 12345678]
@@ -42,7 +44,7 @@ def _counters(n: int, seed: int, device="cpu") -> torch.Tensor:
 
 def _zero():
     jr.reset_counters()
-    rng.reset_launches()
+    build.reset_launches()
 
 
 # ---------------------------------------------------------------------------
@@ -58,7 +60,7 @@ def test_cpu_takes_the_eager_form(key):
     assert got.dtype == torch.int32 and got.shape == c.shape
     assert got.tolist() == _host(key, c.tolist())
     assert jr.counters == {"fold_in_bits_eager": 1}
-    assert rng.launches == {"fold_in_bits": 0}
+    assert build.launches == dict.fromkeys(build.launches, 0)
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
@@ -89,14 +91,21 @@ def test_cpu_sweep_counts_three_eager_passes():
     _zero()
     CS.cluster_sweep(full, jr.PRNGKey(4), B.bond_threshold_u24(0.3))
     assert jr.counters == {"fold_in_bits_eager": 3}
-    assert rng.launches == {"fold_in_bits": 0}
+    assert build.launches == dict.fromkeys(build.launches, 0)
 
 
-@pytest.mark.parametrize("device", ["cpu", "meta"])
-def test_kernel_wrapper_refuses_other_devices(device):
-    with pytest.raises(ValueError, match="CUDA"):
-        rng.fold_in_bits(KEYS[0], torch.zeros(4, dtype=torch.int32,
-                                              device=device))
+def test_kernel_wrapper_runs_the_eager_form_on_the_cpu():
+    """On CPU counters the wrapper runs its plain version, the eager form
+    (``test_torch_kernels.py`` holds its refusal of other devices); it
+    takes int32 counters only."""
+    _zero()
+    c = _counters(37, 4)
+    assert rng.fold_in_bits(KEYS[1], c).tolist() == _host(KEYS[1],
+                                                          c.tolist())
+    assert jr.counters == {"fold_in_bits_eager": 1}
+    assert build.launches == dict.fromkeys(build.launches, 0)
+    with pytest.raises(TypeError, match="int32"):
+        rng.fold_in_bits(KEYS[1], c.long())
 
 
 @pytest.mark.parametrize("betas", [None, (0.3, 0.45)])
@@ -106,7 +115,7 @@ def test_cpu_chain_counts_three_eager_passes_a_sweep(betas):
     _zero()
     IsingEngine(EngineConfig(**kw), device="cpu").simulate(11)
     assert jr.counters == {"fold_in_bits_eager": 3 * kw["n_sweeps"]}
-    assert rng.launches == {"fold_in_bits": 0}
+    assert build.launches == dict.fromkeys(build.launches, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -124,9 +133,9 @@ def cuda():
 def _kernel_equals_eager(key, c):
     """The kernel's bits for ``c`` (through ``fold_in_bits``, one launch)
     equal the eager form's on the same device."""
-    rng.reset_launches()
+    build.reset_launches()
     got = jr.fold_in_bits(key, c)
-    assert rng.launches == {"fold_in_bits": int(c.numel() > 0)}
+    assert build.launches["fold_in_bits"] == int(c.numel() > 0)
     assert got.dtype == torch.int32 and got.shape == c.shape
     assert got.device == c.device
     assert torch.equal(got, jr._fold_in_bits_eager(key, c))
@@ -199,7 +208,7 @@ def test_kernel_takes_other_integer_dtypes(cuda, dtype):
                     (keys, c.view(2, 4))):
         _zero()
         got = jr.fold_in_bits(key, cc)
-        assert rng.launches == {"fold_in_bits": 1}
+        assert build.launches["fold_in_bits"] == 1
         assert jr.counters == {"fold_in_bits_eager": 0}
         assert got.dtype == torch.int32 and got.shape == cc.shape
         assert torch.equal(got, jr._fold_in_bits_eager(key, cc))
@@ -211,7 +220,7 @@ def test_card_refuses_float_counters(cuda, dtype):
     _zero()
     with pytest.raises(TypeError, match="integer counters"):
         jr.fold_in_bits(KEYS[0], torch.zeros(8, dtype=dtype, device=cuda))
-    assert rng.launches == {"fold_in_bits": 0}
+    assert build.launches["fold_in_bits"] == 0
     assert jr.counters == {"fold_in_bits_eager": 0}
 
 
@@ -227,7 +236,7 @@ def test_swendsen_wang_chain_on_the_card_equals_the_cpu(cuda, betas):
     _zero()
     card = IsingEngine(EngineConfig(**kw), device=cuda).simulate(11)
     assert jr.counters == {"fold_in_bits_eager": 0}
-    assert rng.launches == {"fold_in_bits": 3 * kw["n_sweeps"]}
+    assert build.launches["fold_in_bits"] == 3 * kw["n_sweeps"]
     assert torch.equal(card.state.cpu(), cpu.state)
     assert torch.equal(card.magnetization.cpu(), cpu.magnetization)
     assert torch.equal(card.energy.cpu(), cpu.energy)
@@ -241,6 +250,6 @@ def test_one_sweep_on_the_card_is_three_launches(cuda):
     want = CS.cluster_sweep(full, jr.PRNGKey(8), t)
     _zero()
     got = CS.cluster_sweep(full.to(cuda), jr.PRNGKey(8), t)
-    assert rng.launches == {"fold_in_bits": 3}
+    assert build.launches["fold_in_bits"] == 3
     assert jr.counters == {"fold_in_bits_eager": 0}
     assert torch.equal(got.cpu(), want)

@@ -1,9 +1,12 @@
 """The 3-D cube: the port's ``repro_torch.core.ising3d`` and the ``"3d"``
 scenario against ``repro.core.ising3d`` and the JAX engine, bitwise."""
+import functools
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -95,6 +98,13 @@ def test_sweeps_match_jax(beta, dtype):
                                   np.asarray(jone, np.float32))
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_engine(cfg: JConfig) -> JEngine:
+    """One reference engine a config: its compiled chain serves every
+    seed, so no test compiles the same chain twice."""
+    return JEngine(cfg)
+
+
 @pytest.mark.parametrize("measure", [True, False])
 @pytest.mark.parametrize("kw", [
     dict(size=8, beta=0.2216546, hot=True),
@@ -107,7 +117,7 @@ def test_engine_3d_matches_jax(kw, measure):
     for seed in (0, 7):
         got = IsingEngine(EngineConfig(**kw, measure=measure),
                           device="cpu").simulate(seed)
-        want = JEngine(JConfig(**kw, measure=measure)).simulate(seed)
+        want = _jax_engine(JConfig(**kw, measure=measure)).simulate(seed)
         np.testing.assert_array_equal(bridge.to_numpy(got.state),
                                       np.asarray(want.state, np.float32))
         if not measure:

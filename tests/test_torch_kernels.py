@@ -1,15 +1,21 @@
 """The port's kernel module: the plain versions of both CUDA kernels against
 the JAX package's kernel oracle, bitwise, over the shape, dtype, colour,
-rule and beta grid of tests/test_kernel_checkerboard.py.
+rule and beta grid of tests/test_kernel_checkerboard.py; and the launch
+seam (``kernels.build``) every wrapper goes through.
 
 The CUDA kernels themselves run only on the card (``chip_smoke.py`` holds
 each against its plain version there); here a wrapper given a CPU tensor
 runs the plain version and counts no launch.
 """
+import contextlib
+import ctypes
+import types
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -22,8 +28,10 @@ from repro_torch.core import checkerboard as cb  # noqa: E402
 from repro_torch.core import sampler  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import checkerboard as kern  # noqa: E402
+from repro_torch.kernels import measure as kmeasure  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.kernels import rng as krng  # noqa: E402
 
 BETAS = (0.1, 0.4406868, 1.5)
 RULES = ("metropolis_lut", "heat_bath")
@@ -60,18 +68,17 @@ def _to_jax(qb, bits, jdt):
 @pytest.mark.parametrize("jdt,tdt", DTYPES)
 @pytest.mark.parametrize("grid,bs", GRIDS)
 def test_plain_kernels_match_jax_ref(grid, bs, jdt, tdt):
-    """Both colours, both rules, three betas, two seeds per shape."""
+    """Both colours, both rules, three betas, two seeds per shape. On a CPU
+    tensor each wrapper runs its plain version."""
     mr, mc = grid
-    kern.reset_launches()
+    build.reset_launches()
     kh = torch.from_numpy(np.array(JL.kernel_compact(bs, jnp.float32)))
     for seed in (0, 3):
         t_qb, t_bits = _port_inputs(seed, mr, mc, bs, tdt)
         wants = np.asarray(_jax_ref_all_cases(*_to_jax(t_qb, t_bits, jdt)),
                            np.float32)
         for want, (color, rule, beta) in zip(wants, CASES):
-            for fn in (kern.update_color_tiles_plain,
-                       kern.update_color_lines_plain,
-                       kern.update_color_tiles, kern.update_color_lines):
+            for fn in (kern.update_color_tiles, kern.update_color_lines):
                 got = fn(t_qb.clone(), t_bits, beta, color, rule)
                 assert got.dtype == tdt
                 np.testing.assert_array_equal(
@@ -80,10 +87,7 @@ def test_plain_kernels_match_jax_ref(grid, bs, jdt, tdt):
             got = kref.update_color_ref(t_qb, t_bits, kh.to(tdt), beta,
                                         color, rule)
             np.testing.assert_array_equal(got.float().numpy(), want)
-    assert kern.launches == {"update_color_tiles": 0,
-                             "update_color_lines": 0,
-                             "update_color_tiles_keyed": 0,
-                             "update_color_lines_keyed": 0}
+    assert build.launches == dict.fromkeys(build.launches, 0)
 
 
 def test_plain_kernels_match_pallas_interpret():
@@ -174,9 +178,6 @@ def test_wrappers_check_their_operands():
             fn(qb, bits, 0.4, 2)
         with pytest.raises(ValueError):
             fn(qb, bits, 0.4, 0, rule="wolff")
-        # Neither CPU nor CUDA: no plain fallback, the wrapper raises.
-        with pytest.raises(ValueError, match="CUDA"):
-            fn(qb.to("meta"), bits.to("meta"), 0.4, 0)
     with pytest.raises(ValueError, match="unknown backend"):
         ops.update_color(qb, bits, 0.4, 0, backend="xla")
 
@@ -197,3 +198,77 @@ def test_build_paths_follow_the_sources(tmp_path, monkeypatch):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         build.build(["checkerboard_tiles"])
+
+
+WRAPPERS = ("update_color_tiles", "update_color_lines",
+            "update_color_tiles_keyed", "update_color_lines_keyed",
+            "blocked_totals", "fold_in_bits")
+
+
+def _meta_call(name):
+    """Wrapper ``name`` and its arguments, every tensor on ``meta``."""
+    qb = torch.ones(4, 1, 1, 8, 8, device="meta")
+    bits = torch.zeros(2, 1, 1, 8, 8, dtype=torch.int32, device="meta")
+    key = jr.PRNGKey(0)
+    return {"update_color_tiles": (kern, (qb, bits, 0.4, 0)),
+            "update_color_lines": (kern, (qb, bits, 0.4, 0)),
+            "update_color_tiles_keyed": (kern, (qb, key, 0.4, 0)),
+            "update_color_lines_keyed": (kern, (qb, key, 0.4, 0)),
+            "blocked_totals": (kmeasure, (qb,)),
+            "fold_in_bits": (krng, (key, bits))}[name]
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_wrappers_refuse_other_devices(name):
+    """Neither CPU nor CUDA: no plain version runs, and every wrapper
+    raises the seam's one message and counts nothing."""
+    module, args = _meta_call(name)
+    build.reset_launches()
+    with pytest.raises(ValueError, match=rf"^{name} runs on CUDA or CPU "
+                       r"tensors \(the CPU runs its plain version\), got "
+                       r"meta$"):
+        getattr(module, name)(*args)
+    assert build.launches == dict.fromkeys(build.launches, 0)
+
+
+@pytest.mark.parametrize("err", [0, 700])
+def test_launch_sets_the_signature_once_and_counts_what_returns_0(
+        err, monkeypatch):
+    """``build.launch`` on a stand-in library: the entry's signature is set
+    when it is first loaded; a tensor passes its pointer and the stream
+    comes last; a nonzero return raises naming the entry and counts
+    nothing, a zero return counts one launch under the wrapper's name."""
+    calls, loads = [], []
+
+    def fn(*args):
+        calls.append(args)
+        return err
+
+    def load(name):
+        loads.append(name)
+        return types.SimpleNamespace(ising_blocked_totals=fn)
+
+    monkeypatch.setattr(build, "load", load)
+    monkeypatch.setattr(build, "_FUNCTIONS", {})
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=9))
+    entry = build.Entry("blocked_totals", "blocked_totals",
+                        "ising_blocked_totals",
+                        (ctypes.c_void_p, ctypes.c_int))
+    build.reset_launches()
+    t = torch.zeros(3)
+    for _ in range(2):
+        if err:
+            with pytest.raises(RuntimeError, match="^ising_blocked_totals "
+                               "launch failed: cudaError 700$"):
+                build.launch(entry, "cuda", t, 5)
+        else:
+            build.launch(entry, "cuda", t, 5)
+    assert loads == ["blocked_totals"]
+    assert fn.restype is ctypes.c_int
+    assert fn.argtypes == [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    assert calls == [(t.data_ptr(), 5, 9)] * 2
+    assert build.launches == dict(dict.fromkeys(build.launches, 0),
+                                  blocked_totals=0 if err else 2)

@@ -14,6 +14,7 @@ import pytest
 from conftest import REPO, SRC
 
 pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _run(args, timeout=600):

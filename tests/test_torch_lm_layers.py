@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -24,17 +25,6 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 
 ATOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Test workers run side by side on the same cores: torch's intra-op
-    threads would oversubscribe them, which makes small eager ops about
-    ten times slower. The previous count comes back after the module."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _normal(rng, shape):

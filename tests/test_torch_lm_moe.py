@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -41,17 +42,6 @@ from repro_torch.train import train_step as TS  # noqa: E402
 from test_torch_lm_model import (_close, _grads_close, batch_pair,  # noqa: E402
                                  carried, port_cfg)
 from test_torch_lm_ssm import three_steps_match_jax  # noqa: E402
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Test workers run side by side on the same cores: torch's intra-op
-    threads would oversubscribe them, which makes small eager ops about
-    ten times slower. The previous count comes back after the module."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _cfg(arch="kimi-k2-1t-a32b", **kw):

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -53,17 +54,6 @@ def _rel(path: str) -> float:
     to 2e-4 of their largest entry (measured: 1.4e-4 on mamba2's
     ``conv_b``); every other leaf to 1e-4."""
     return 2 * REL if path.startswith("opt/v/") else REL
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Test workers run side by side on the same cores: torch's intra-op
-    threads would oversubscribe them, which makes small eager ops about
-    ten times slower. The previous count comes back after the module."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _pair(rng, shape, scale=1.0):

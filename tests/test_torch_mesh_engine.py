@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from conftest import REPO, SRC  # noqa: E402
 from repro_torch.api import EngineConfig, IsingEngine  # noqa: E402

@@ -2,10 +2,13 @@
 checkerboard heat-bath / Metropolis, FK bonds, Swendsen-Wang / Wolff) and
 the ``"potts_cb"`` / ``"potts_cluster"`` scenarios against
 ``repro.potts`` and the JAX engine, bitwise; q = 2 against Ising."""
+import functools
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -192,11 +195,18 @@ def test_cluster_sweeps_match_jax(q, algo):
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_engine(cfg: JConfig) -> JEngine:
+    """One reference engine a config: its compiled chain serves every
+    seed, so no test compiles the same chain twice."""
+    return JEngine(cfg)
+
+
 def _engine_pair(seed, **kw):
     base = dict(size=16, n_sweeps=4, block_size=4, model="potts")
     base.update(kw)
     got = IsingEngine(EngineConfig(**base), device="cpu").simulate(seed)
-    want = JEngine(JConfig(**base)).simulate(seed)
+    want = _jax_engine(JConfig(**base)).simulate(seed)
     np.testing.assert_array_equal(got.state.numpy(), np.asarray(want.state))
     assert got.state.dtype == torch.int32
     assert got.extra == want.extra

@@ -9,6 +9,7 @@ Also the cases of ``tests/test_sharding.py`` and the activation hint.
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 

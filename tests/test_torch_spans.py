@@ -6,6 +6,7 @@ import collections
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro_torch import random as jr  # noqa: E402
 from repro_torch import spans  # noqa: E402

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -36,17 +37,6 @@ from repro_torch.train.trainer import Trainer, TrainLoopConfig  # noqa: E402
 REL = 1e-4
 SHAPE = ShapeConfig("t", seq_len=16, global_batch=8, kind="train")
 JSHAPE = JShape("t", seq_len=16, global_batch=8, kind="train")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Test workers run side by side on the same cores: torch's intra-op
-    threads would oversubscribe them, which makes small eager ops about
-    ten times slower. The previous count comes back after the module."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def port_cfg(jcfg) -> ModelConfig:
