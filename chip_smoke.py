@@ -28,6 +28,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     that a key batch shares (stride 0); then one 5120^2 Swendsen-Wang
     sweep through ``IsingEngine`` with the counts set to 0 just before
     and read just after: 3 fold-in launches, 0 eager passes;
+3c. the label kernel (``kernels.label.label_components``, which
+    ``cluster.label.label_components`` launches for bond masks on the
+    card) bitwise against the plain propagation (``cluster.label.
+    propagate``) run to its fixed point on the same masks: 5120^2 FK bonds
+    at the Swendsen-Wang cells' two betas, a stack of 4 x 1000^2 and
+    ragged 37 x 53; then one 5120^2 Swendsen-Wang sweep through
+    ``IsingEngine``: 1 label launch, 0 label iterations;
 4. the main path at full size: ``IsingEngine(EngineConfig(size=20480,
    beta=0.4406868, backend=b, hot=True)).simulate(0)`` for b in pallas and
    pallas_lines, measured, with every launch count reset just before and
@@ -104,11 +111,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    beta where torch's own exp differs from the port's XLA f32 tables;
 6. each of those scenarios at a size its users run, host clock per sweep
    around a synchronised ``IsingEngine.run`` after a warm-up run, with
-   label iterations (one changed-flag host sync each) per cluster sweep;
+   label kernel launches per cluster sweep;
    a 64-replica ensemble at 256^2 stepped in one pass against the same
    replicas one at a time (bitwise equal, both timed); the share of a
    sweep that is threefry bits, and the share of a Swendsen-Wang sweep
-   spent in threefry bits, label rounds and the changed-flag check;
+   spent in threefry bits and the label kernel, beside the plain
+   propagation's rounds and changed-flag checks on the same bonds;
 7. the decomposed lattice at a small size, card == CPU bitwise (state and
    moments): ``"mesh"`` (one-rank grid) and ``"opt"`` on the xla paper
    pipeline, the xla opt pipeline and ``pallas_lines``, measured
@@ -132,7 +140,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    all-reduced over the group, flips/ns and peak memory; ``mesh3d`` timed
    at 512^3; the cluster and Potts meshes and a 16 x 4096^2 replica
    ensemble at their single-device twins' sizes (ms per sweep beside the
-   twin's, label iterations, cross-rank merge iterations, which one rank
+   twin's, label kernel launches, cross-rank merge iterations, which one rank
    never enters, and all-reduces per sweep); the launcher
    (``repro_torch.launch.simulate``) at 4096^2 on one rank: 6 sweeps with
    a checkpoint every 3, a resume to 9, equal bitwise to a straight
@@ -145,7 +153,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     clock), color_bits, the measurement kernel against its byte bound (2
     bytes a site) and its plain version, the fold-in kernel at 5120^2
     against its bound (bytes or integer issue, whichever is larger) and
-    its eager form, blocked_stats, and the kernel
+    its eager form, the label kernel at 5120^2 (both cells' betas) against
+    its byte bound and the plain propagation, blocked_stats, and the kernel
     path's sweeps per second measured and not (flips/ns), peak memory.
 
 Every path of phases 4-9 runs with the kernel launch counts
@@ -157,9 +166,10 @@ among them); the measurement kernel's count reads 1 a measured sweep on
 the kernel paths and 0 on every other (the grids' measurement takes the
 matmul chain).
 
-The fold-in kernel's count is read only in phase 3b: the cluster
-scenarios launch it 3 times a 2-D Swendsen-Wang sweep, and "no kernel"
-above speaks of the half-sweep and measurement forms.
+The fold-in and label kernels' counts are read in phases 3b, 3c, 6 and
+9: the cluster scenarios launch the fold-in kernel 3 times and the label
+kernel once a 2-D Swendsen-Wang sweep, and "no kernel" above speaks of
+the half-sweep and measurement forms.
 
 It prints one JSON line of kernel records, then the card line, then the
 contract line ``{"ok": true, "device": {...}}`` last. Without a CUDA device,
@@ -194,7 +204,10 @@ TILES_CU = "src/repro_torch/kernels/csrc/checkerboard_tiles.cu"
 LINES_CU = "src/repro_torch/kernels/csrc/checkerboard_lines.cu"
 TOTALS_CU = "src/repro_torch/kernels/csrc/blocked_totals.cu"
 FOLD_CU = "src/repro_torch/kernels/csrc/threefry_fold.cu"
+LABEL_CU = "src/repro_torch/kernels/csrc/label_components.cu"
 SW_SIZE = 5120               # the Swendsen-Wang cells' lattice
+# the Swendsen-Wang cells' betas (1.1 T_c and 2 T_c)
+SW_BETAS = {"sw-near-critical": 0.4006244, "sw-hot": 0.2203434}
 # name -> source, the TPU kernel it replaces, keyed form or not
 KERNELS = {
     "update_color_tiles": dict(
@@ -491,6 +504,83 @@ def phase_fold_in(errs: dict, launches: dict) -> None:
         f"{counts[0]} fold-in launches, {counts[1]} eager passes")
 
 
+def sw_bonds(beta: float, n: int = SW_SIZE, sweeps: int = 3) -> tuple:
+    """FK bond masks of an n^2 lattice at ``beta`` that ``sweeps``
+    Swendsen-Wang sweeps brought from a hot start toward equilibrium."""
+    from repro_torch import random as jr
+    from repro_torch.cluster import bonds as B
+    from repro_torch.cluster import sweep as CS
+    from repro_torch.core import lattice as L
+    t = B.bond_threshold_u24(beta)
+    full = L.random_lattice(jr.PRNGKey(54), n, n, device="cuda")
+    key = jr.PRNGKey(55)
+    for _ in range(sweeps):
+        full = CS.cluster_sweep(full, key, t)
+        key = jr.fold_in(key, 1)
+    return B.fk_bonds(full, jr.fold_in(key, 0), t)
+
+
+def _label_equals_plain(label: str, br, bd, errs: dict) -> int:
+    """The label kernel's labels for masks ``br``, ``bd`` on the card (one
+    launch, no iteration) equal the plain propagation's on the same masks;
+    returns the propagation's iterations."""
+    from repro_torch.cluster import label as LBL
+    from repro_torch.kernels import build
+    build.reset_launches()
+    LBL.reset_counters()
+    got, iters = LBL.label_components(br, bd, with_iters=True)
+    counts = (build.launches["label_components"], LBL.counters["iterations"],
+              iters)
+    want, plain_iters = LBL.propagate(br, bd)
+    bad = int((got != want).sum())
+    errs["label_components"] = max(errs["label_components"], bad)
+    if counts != (1, 0, 0) or bad:
+        raise AssertionError(f"labels {label}: (launches, iterations, "
+                             f"iters) {counts}, want (1, 0, 0); {bad} sites "
+                             "differ from the propagation")
+    return plain_iters
+
+
+def phase_label(errs: dict, launches: dict) -> None:
+    """The label kernel bitwise against the plain propagation at the
+    Swendsen-Wang cells' shape and betas, on a stack and a ragged shape,
+    and its launches in one 5120^2 sweep of the cells' main path."""
+    import torch
+    from repro_torch.api import EngineConfig, IsingEngine
+    from repro_torch.cluster import label as LBL
+    from repro_torch.kernels import build
+    for cell, beta in SW_BETAS.items():
+        br, bd = sw_bonds(beta)
+        iters = _label_equals_plain(f"{SW_SIZE}^2 {cell}", br, bd, errs)
+        log(f"label kernel == propagation on the card: {SW_SIZE}^2 FK bonds "
+            f"at beta {beta} ({cell}; the propagation took {iters} "
+            "iterations)")
+        del br, bd
+    g = torch.Generator(device="cuda").manual_seed(56)
+    for shape, p in (((4, 1000, 1000), 0.5), ((37, 53), 0.6)):
+        br = torch.rand(shape, generator=g, device="cuda") < p
+        bd = torch.rand(shape, generator=g, device="cuda") < p
+        _label_equals_plain(f"{shape} p={p}", br, bd, errs)
+    eng = IsingEngine(EngineConfig(
+        size=SW_SIZE, beta=SW_BETAS["sw-near-critical"], n_sweeps=1,
+        algorithm="swendsen_wang", dtype="bfloat16", measure=True, hot=True),
+        device="cuda")
+    eng.simulate(0)                         # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    LBL.reset_counters()
+    eng.simulate(1)
+    torch.cuda.synchronize()
+    counts = (build.launches["label_components"], LBL.counters["iterations"])
+    if counts != (1, 0):
+        raise AssertionError(f"one {SW_SIZE}^2 SW sweep: (label launches, "
+                             f"label iterations) {counts}, want (1, 0)")
+    launches["label_components"] = counts[0]
+    log(f"label kernel == propagation on [4, 1000, 1000] and 37 x 53; one "
+        f"{SW_SIZE}^2 Swendsen-Wang sweep (IsingEngine, measured): "
+        f"{counts[0]} label launch, {counts[1]} label iterations")
+
+
 def _read_launches(label: str, want: dict) -> dict:
     """The half-sweep forms' and the measurement kernel's launch counts
     since the last reset; ``want`` gives those that must have launched,
@@ -762,7 +852,7 @@ def phase_scenarios_full() -> dict:
     import torch
     from repro_torch import random as jr
     from repro_torch.api import IsingEngine
-    from repro_torch.cluster import label as LBL
+    from repro_torch.kernels import build
     out = {}
     for label, cfg in full_scenarios():
         eng = IsingEngine(cfg, device="cuda")
@@ -770,7 +860,6 @@ def phase_scenarios_full() -> dict:
         eng.run(state, jr.PRNGKey(20))      # warm the allocator
         torch.cuda.synchronize()
         reset_launches()
-        LBL.reset_counters()
         t0 = time.perf_counter()
         res = eng.run(state, jr.PRNGKey(22))
         torch.cuda.synchronize()
@@ -783,8 +872,8 @@ def phase_scenarios_full() -> dict:
                 f"{seconds / sweeps * 1e3:.3f} ms per sweep, "
                 f"{spins * sweeps / seconds / 1e9:.4f} sites/ns")
         if cfg.algorithm != "metropolis":
-            line += (f", {LBL.counters['iterations'] / sweeps:.1f} label "
-                     "iterations (one changed-flag sync each) per sweep")
+            line += (f", {build.launches['label_components'] / sweeps:.1f}"
+                     " label kernel launches per sweep")
         if cfg.ensemble == "tempering":
             line += f", swap fraction {res.extra['swap_fraction']}"
         log(line)
@@ -868,9 +957,11 @@ def phase_rng_shares(per_sweep: dict) -> None:
 
 def phase_cluster_breakdown(n: int = 2048) -> None:
     """Where one Swendsen-Wang sweep at 2048^2, beta_c goes: threefry bits
-    (two bond words and one coin word per site), label rounds on the card,
-    and the changed-flag check (labeling with a compare, reduce and host
-    sync per iteration against the same rounds enqueued without them)."""
+    (two bond words and one coin word per site) and the label kernel;
+    beside them the plain propagation on the same bonds, its rounds and
+    its changed-flag check (the propagation with a compare, reduce and
+    host sync per iteration against the same rounds enqueued without
+    them)."""
     import torch
     from repro_torch import random as jr
     from repro_torch.cluster import bonds as B
@@ -886,7 +977,8 @@ def phase_cluster_breakdown(n: int = 2048) -> None:
     gi = B.global_index(n, n, device="cuda")
     kb, kc = jr.fold_in(key, 0), jr.fold_in(key, 1)
     br, bd = B.fk_bonds(full, kb, t24)
-    lab, iters = LBL.label_components(br, bd, with_iters=True)
+    lab = LBL.label_components(br, bd)
+    iters = LBL.propagate(br, bd)[1]
 
     def bits():
         B.bond_bits(kb, gi, 0)
@@ -909,16 +1001,18 @@ def phase_cluster_breakdown(n: int = 2048) -> None:
 
     sweep_ms = wall(lambda: CS.cluster_sweep(full, key, t24))
     bits_ms = time_ms(bits, reps=5)
-    label_ms = wall(lambda: LBL.label_components(br, bd))
+    label_ms = time_ms(lambda: LBL.label_components(br, bd), reps=20)
+    plain_ms = wall(lambda: LBL.propagate(br, bd))
     rounds_ms = wall(rounds)
-    check_ms = label_ms - rounds_ms
+    check_ms = plain_ms - rounds_ms
     rest = sweep_ms - bits_ms - label_ms
     log(f"cluster sweep breakdown SW {n}^2 beta_c: {sweep_ms:.3f} ms per "
         f"sweep; threefry bits {bits_ms:.3f} ms ({bits_ms / sweep_ms:.1%}); "
-        f"label rounds {rounds_ms:.3f} ms ({rounds_ms / sweep_ms:.1%}, "
-        f"{iters} iterations x 2 rounds); changed-flag check + sync "
-        f"{check_ms:.3f} ms ({check_ms / sweep_ms:.1%}, {iters} checks); "
-        f"rest {rest:.3f} ms ({rest / sweep_ms:.1%})")
+        f"label kernel {label_ms:.3f} ms ({label_ms / sweep_ms:.1%}); rest "
+        f"{rest:.3f} ms ({rest / sweep_ms:.1%}). The plain propagation on "
+        f"the same bonds: {plain_ms:.3f} ms, of it rounds {rounds_ms:.3f} "
+        f"ms ({iters} iterations x 2 rounds) and changed-flag check + sync "
+        f"{check_ms:.3f} ms ({iters} checks)")
 
 
 GRID_PATHS = [
@@ -1132,7 +1226,7 @@ def phase_grid_cluster_full(twins: dict) -> None:
     import torch
     from repro_torch import random as jr
     from repro_torch.api import IsingEngine
-    from repro_torch.cluster import label as LBL
+    from repro_torch.kernels import build
     from repro_torch.launch import mesh as mesh_lib
     for label, cfg in grid_cluster_scenarios(0, full=True):
         eng = IsingEngine(cfg)
@@ -1144,7 +1238,6 @@ def phase_grid_cluster_full(twins: dict) -> None:
         torch.cuda.synchronize()
         reset_launches()
         mesh_lib.reset_counters()
-        LBL.reset_counters()
         t0 = time.perf_counter()
         res = eng.run(state, jr.PRNGKey(92))
         torch.cuda.synchronize()
@@ -1165,8 +1258,9 @@ def phase_grid_cluster_full(twins: dict) -> None:
             f"{seconds:.4f} s, {seconds / n * 1e3:.3f} ms per sweep "
             f"(single-device twin "
             f"{twin * 1e3 if twin else float('nan'):.3f} ms), "
-            f"{spins * n / seconds / 1e9:.4f} sites/ns, label iterations "
-            f"{LBL.counters['iterations'] / n:.1f}, cross-rank merge "
+            f"{spins * n / seconds / 1e9:.4f} sites/ns, label kernel "
+            f"launches {build.launches['label_components'] / n:.1f}, "
+            "cross-rank merge "
             f"iterations {mesh_lib.counters['label_merge'] / n:.1f} (one "
             "rank never merges), all-reduces "
             f"{mesh_lib.counters['all_reduce'] / n:.1f} per sweep")
@@ -2928,6 +3022,37 @@ def phase_fold_in_timing(errs: dict, launches: dict, clock_hz: float,
         library_ms=None)
 
 
+def phase_label_timing(errs: dict, launches: dict) -> dict:
+    """The label kernel at the Swendsen-Wang cells' shape, on FK bonds at
+    each cell's beta, against its byte bound (the two masks read and the
+    labels written once) and the plain propagation run to its fixed
+    point on the same masks."""
+    from repro_torch.cluster import label as LBL
+    from repro_torch.kernels import label as K
+    n = SW_SIZE * SW_SIZE
+    bound_ms = n * (1 + 1 + 4) / HBM_BYTES_PER_S * 1e3
+    rows = {}
+    for cell, beta in SW_BETAS.items():
+        br, bd = sw_bonds(beta)
+        iters = _label_equals_plain(f"{SW_SIZE}^2 {cell} timed", br, bd, errs)
+        ms = time_ms(lambda: K.label_components(br, bd), reps=50)
+        plain_ms = time_ms(lambda: LBL.propagate(br, bd), reps=3, warmup=1)
+        rows[cell] = (ms, plain_ms)
+        log(f"time label_components {SW_SIZE}^2 {cell} (beta {beta}): "
+            f"{ms:.4f} ms per launch, bound {bound_ms:.4f} ms (bytes: 2 "
+            f"masks of 1 B and labels of 4 B a site), {bound_ms / ms:.1%} "
+            f"of bound; plain propagation {plain_ms:.3f} ms ({iters} "
+            "iterations)")
+        del br, bd
+    ms, plain_ms = rows["sw-near-critical"]
+    return dict(
+        name="label_components", route="cuda", source=LABEL_CU,
+        replaces=None, launches=launches["label_components"],
+        max_abs_err=errs["label_components"], ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+        hot_ms=rows["sw-hot"][0], hot_plain_ms=rows["sw-hot"][1])
+
+
 def phase_timing(launches: dict, errs: dict, sweeps: int = 20) -> tuple:
     import torch
     from perfbench.work import SITE_ADDS, SITE_F32, SITE_INT_ONLY, site_clocks
@@ -3015,6 +3140,7 @@ def phase_timing(launches: dict, errs: dict, sweeps: int = 20) -> tuple:
         f"{totals_plain_ms:.3f} ms; blocked_stats (the kernel, its f32 "
         f"sums and means): {stats_ms:.4f} ms per sweep")
     records.append(fold)
+    records.append(phase_label_timing(errs, launches))
     del qb, bits
     runs = {}
     for backend, (keyed, _) in BACKENDS.items():
@@ -3058,11 +3184,12 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     phase_build()
     errs = {name: 0.0 for name in (*KERNELS, "blocked_totals",
-                                   "fold_in_bits")}
+                                   "fold_in_bits", "label_components")}
     launches = {name: 0 for name in (*KERNELS, "blocked_totals",
-                                     "fold_in_bits")}
+                                     "fold_in_bits", "label_components")}
     phase_kernels_vs_plain(errs)
     phase_fold_in(errs, launches)
+    phase_label(errs, launches)
     phase_main_path(launches)
     phase_small_and_chain()
     t_lm = time.perf_counter()

@@ -2,8 +2,9 @@
 
 The port of ``repro.cluster`` (its sharded form is :mod:`~repro_torch.
 cluster.mesh`): FK bonds with u24 thresholds and counter-based bond bits
-(:mod:`~repro_torch.cluster.bonds`), canonical labels by neighbour-min and
-pointer jumps (:mod:`~repro_torch.cluster.label`), and gather-free
+(:mod:`~repro_torch.cluster.bonds`), canonical labels (:mod:`~repro_torch.
+cluster.label`: union-find on the card, neighbour-min and pointer jumps on
+the CPU), and gather-free
 per-cluster coins (:mod:`~repro_torch.cluster.sweep`).
 """
 from repro_torch.cluster.bonds import (bond_prob_f32, bond_threshold_u24,

@@ -1,21 +1,30 @@
-"""Connected-component labeling by iterated min-label propagation.
+"""Connected-component labeling: canonical min-index labels of a bond
+graph.
 
-The port of ``repro.cluster.label``. Every site starts labeled with its own
-linear index; each round takes the minimum label over its active-bond
-neighbours (rolls + ``minimum``) and then pointer-jumps
-(``lab = lab[lab]``). The fixed point gives every site the minimum linear
-index of its cluster, so labels are canonical.
+The port of ``repro.cluster.label``. Every site is labeled with the
+minimum linear index of its cluster, so labels are canonical: any exact
+algorithm gives the same bits.
 
-The reference's ``while_loop`` on a changed flag becomes a host loop: one
-iteration runs ``rounds_per_iter`` rounds on the device and then reads the
-changed flag with one ``.item()``, so every iteration is one host sync.
-The fixed point does not depend on that cadence, and iterations are
-counted as the reference counts them. :data:`counters` accumulates
-iterations for the measurement plane.
+* **On a CUDA device** :func:`label_components` launches one hand-written
+  union-find (:mod:`repro_torch.kernels.label`, counted in
+  ``kernels.build.launches["label_components"]``): no rounds, no host
+  sync. ``with_iters`` then gives 0 iterations and ``rounds_per_iter`` is
+  not read.
+* **On the CPU** it runs :func:`propagate`, the reference's iterated
+  min-label propagation and the plain version the kernel is held to. Every
+  site starts labeled with its own linear index; each round takes the
+  minimum label over its active-bond neighbours (rolls + ``minimum``) and
+  then pointer-jumps (``lab = lab[lab]``). The reference's ``while_loop``
+  on a changed flag becomes a host loop: one iteration runs
+  ``rounds_per_iter`` rounds and then reads the changed flag with one
+  ``.item()``, so every iteration is one host sync. The fixed point does
+  not depend on that cadence, and iterations are counted as the reference
+  counts them. :data:`counters` accumulates these iterations, so it counts
+  the plain path alone.
 
-A stack of bond graphs ``[N, H, W]`` is labeled in one loop, each replica
-in its own index space; the loop runs until no replica changes, and a
-replica at its fixed point stays there, so its labels are those of a run
+A stack of bond graphs ``[N, H, W]`` is labeled in one call, each replica
+in its own index space. The propagation runs until no replica changes, and
+a replica at its fixed point stays there, so its labels are those of a run
 of its own.
 """
 from __future__ import annotations
@@ -61,26 +70,40 @@ def pointer_jump(lab, jumps: int = 2) -> torch.Tensor:
     return flat.view(lab.shape)
 
 
+def propagate(bond_right, bond_down, rounds_per_iter: int = 2) -> tuple:
+    """The plain version on any device: ``(labels, iterations)`` of the
+    min-label propagation to its fixed point, one changed-flag host sync an
+    iteration (counted in :data:`counters`)."""
+    h, w = bond_right.shape[-2:]
+    lab = init_labels(h, w, bond_right.device).expand(bond_right.shape)
+    iters = 0
+    changed = True
+    while changed:
+        new = lab
+        for _ in range(rounds_per_iter):
+            new = pointer_jump(neighbor_min(new, bond_right, bond_down),
+                               jumps=1)
+        flag = torch.any(new != lab)
+        with span("repro_torch.cluster.label.sync"):
+            changed = bool(flag.item())
+        lab = new
+        iters += 1
+    counters["iterations"] += iters
+    return lab, iters
+
+
 def label_components(bond_right, bond_down, with_iters: bool = False,
                      rounds_per_iter: int = 2):
     """Canonical min-index labels of the bond graph, [..., h, w] int32;
-    with ``with_iters`` also the iteration count (an int)."""
+    with ``with_iters`` also the iteration count (an int: the propagation's
+    on the CPU, 0 on the card). A CUDA tensor launches the union-find
+    kernel, a CPU tensor runs :func:`propagate`, any other device raises."""
     with span("repro_torch.cluster.label"):
-        h, w = bond_right.shape[-2:]
-        lab = init_labels(h, w, bond_right.device).expand(bond_right.shape)
-        iters = 0
-        changed = True
-        while changed:
-            new = lab
-            for _ in range(rounds_per_iter):
-                new = pointer_jump(neighbor_min(new, bond_right, bond_down),
-                                   jumps=1)
-            flag = torch.any(new != lab)
-            with span("repro_torch.cluster.label.sync"):
-                changed = bool(flag.item())
-            lab = new
-            iters += 1
-    counters["iterations"] += iters
+        if bond_right.device.type == "cpu":
+            lab, iters = propagate(bond_right, bond_down, rounds_per_iter)
+        else:
+            from repro_torch.kernels import label as K
+            lab, iters = K.label_components(bond_right, bond_down), 0
     if with_iters:
         return lab, iters
     return lab

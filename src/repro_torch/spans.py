@@ -31,10 +31,11 @@ The spans, each where its work happens so that every caller gets it:
   the white colour's neighbour sums (``nn_white``) and the f32 sums;
 * ``repro_torch.cluster.bonds``: ``cluster.bonds.fk_bonds``, the
   neighbour rolls and compares and the two bond hashes;
-* ``repro_torch.cluster.label``: ``cluster.label.label_components``, every
-  label iteration;
-* ``repro_torch.cluster.label.sync``: inside it, the changed flag's
-  ``.item()``, one host sync an iteration;
+* ``repro_torch.cluster.label``: ``cluster.label.label_components``: on
+  the card the union-find kernel's launch, on the CPU every label
+  iteration;
+* ``repro_torch.cluster.label.sync``: inside it, on the CPU alone, the
+  changed flag's ``.item()``, one host sync an iteration;
 * ``repro_torch.cluster.coins``: ``cluster.sweep._cluster_signs``, the
   per-site coin hash (or Wolff's seed mask);
 * ``repro_torch.engine.series.sync``: ``api.engine.IsingEngine``'s

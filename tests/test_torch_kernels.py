@@ -28,6 +28,7 @@ from repro_torch.core import checkerboard as cb  # noqa: E402
 from repro_torch.core import sampler  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import checkerboard as kern  # noqa: E402
+from repro_torch.kernels import label as klabel  # noqa: E402
 from repro_torch.kernels import measure as kmeasure  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
@@ -187,9 +188,9 @@ def test_build_paths_follow_the_sources(tmp_path, monkeypatch):
     raises instead of falling back."""
     names = set(build.SOURCES)
     assert names == {"checkerboard_tiles", "checkerboard_lines",
-                     "blocked_totals", "threefry_fold"}
+                     "blocked_totals", "threefry_fold", "label_components"}
     paths = {n: build.library_path(n) for n in names}
-    assert len(set(paths.values())) == 4
+    assert len(set(paths.values())) == 5
     assert all(p.parent == build.BUILD_DIR for p in paths.values())
     assert build.library_path("checkerboard_tiles") == \
         paths["checkerboard_tiles"]
@@ -202,7 +203,7 @@ def test_build_paths_follow_the_sources(tmp_path, monkeypatch):
 
 WRAPPERS = ("update_color_tiles", "update_color_lines",
             "update_color_tiles_keyed", "update_color_lines_keyed",
-            "blocked_totals", "fold_in_bits")
+            "blocked_totals", "fold_in_bits", "label_components")
 
 
 def _meta_call(name):
@@ -210,12 +211,14 @@ def _meta_call(name):
     qb = torch.ones(4, 1, 1, 8, 8, device="meta")
     bits = torch.zeros(2, 1, 1, 8, 8, dtype=torch.int32, device="meta")
     key = jr.PRNGKey(0)
+    bonds = torch.zeros(8, 8, dtype=torch.bool, device="meta")
     return {"update_color_tiles": (kern, (qb, bits, 0.4, 0)),
             "update_color_lines": (kern, (qb, bits, 0.4, 0)),
             "update_color_tiles_keyed": (kern, (qb, key, 0.4, 0)),
             "update_color_lines_keyed": (kern, (qb, key, 0.4, 0)),
             "blocked_totals": (kmeasure, (qb,)),
-            "fold_in_bits": (krng, (key, bits))}[name]
+            "fold_in_bits": (krng, (key, bits)),
+            "label_components": (klabel, (bonds, bonds))}[name]
 
 
 @pytest.mark.parametrize("name", WRAPPERS)
