@@ -13,7 +13,10 @@ comparable when fed the same uniforms:
                                  their results are small integers, exact in
                                  bf16 and f32.
 
-Site updates dispatch on :mod:`repro_torch.core.update_rules`.
+Site updates dispatch on :mod:`repro_torch.core.update_rules`. The
+Algorithm-2 neighbour sums (:func:`nn_black`, :func:`nn_white`: the K-hat
+matmuls and the halo lines) run inside the ``repro_torch.checkerboard.nn``
+span.
 """
 from __future__ import annotations
 
@@ -21,6 +24,9 @@ import torch
 
 from repro_torch.core import lattice as L
 from repro_torch.core import update_rules as rules
+from repro_torch.spans import span
+
+NN = "repro_torch.checkerboard.nn"
 
 
 def _flip(sigma, nn, probs, beta, accept: str, field: float = 0.0):
@@ -146,27 +152,29 @@ def edge_lines(a, b, c, d, color: int, edges=default_edges):
 
 def nn_black(a, b, c, d, kh, edges=default_edges):
     """nn sums for the black quads (A, D); inputs are [..., mr, mc, bs, bs]."""
-    kht = kh.T
-    row0, col0, row1, col1 = edge_lines(a, b, c, d, 0, edges)
-    nn_a = _bmm(b, kh) + _bmm_t(kht, c)
-    nn_a[..., :, 0] += col0    # west col of B
-    nn_a[..., 0, :] += row0    # north row of C
-    nn_d = _bmm_t(kh, b) + _bmm(c, kht)
-    nn_d[..., -1, :] += row1   # south row of B
-    nn_d[..., :, -1] += col1   # east col of C
+    with span(NN):
+        kht = kh.T
+        row0, col0, row1, col1 = edge_lines(a, b, c, d, 0, edges)
+        nn_a = _bmm(b, kh) + _bmm_t(kht, c)
+        nn_a[..., :, 0] += col0    # west col of B
+        nn_a[..., 0, :] += row0    # north row of C
+        nn_d = _bmm_t(kh, b) + _bmm(c, kht)
+        nn_d[..., -1, :] += row1   # south row of B
+        nn_d[..., :, -1] += col1   # east col of C
     return nn_a, nn_d
 
 
 def nn_white(a, b, c, d, kh, edges=default_edges):
     """nn sums for the white quads (B, C)."""
-    kht = kh.T
-    row0, col0, row1, col1 = edge_lines(a, b, c, d, 1, edges)
-    nn_b = _bmm(a, kht) + _bmm_t(kht, d)
-    nn_b[..., :, -1] += col0   # east col of A
-    nn_b[..., 0, :] += row0    # north row of D
-    nn_c = _bmm_t(kh, a) + _bmm(d, kh)
-    nn_c[..., -1, :] += row1   # south row of A
-    nn_c[..., :, 0] += col1    # west col of D
+    with span(NN):
+        kht = kh.T
+        row0, col0, row1, col1 = edge_lines(a, b, c, d, 1, edges)
+        nn_b = _bmm(a, kht) + _bmm_t(kht, d)
+        nn_b[..., :, -1] += col0   # east col of A
+        nn_b[..., 0, :] += row0    # north row of D
+        nn_c = _bmm_t(kh, a) + _bmm(d, kh)
+        nn_c[..., -1, :] += row1   # south row of A
+        nn_c[..., :, 0] += col1    # west col of D
     return nn_b, nn_c
 
 

@@ -32,7 +32,8 @@ On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor,
 and only there, it runs the plain PyTorch version beside it, which repeats
 the kernel's arithmetic (four-neighbour adds in f32, then the rule's
 select and compare; the keyed form's plain version draws the bits with
-``random.bits`` first). Each launch is counted in ``build.launches`` under
+``random.kernel_bits`` first, outside the draws span and its counter, as
+the kernel draws them). Each launch is counted in ``build.launches`` under
 the wrapper's name.
 """
 from __future__ import annotations
@@ -165,9 +166,10 @@ def update_color_tiles(qb, bits, beta: float, color: int,
 
 def update_color_tiles_keyed_plain(qb, key, beta: float, color: int,
                                    rule: str = "metropolis_lut"):
-    """Plain version of the keyed tile-fetch kernel: ``random.bits`` under
-    the colour key, then the operand form's plain version."""
-    bits = jr.bits(key, (2,) + tuple(qb.shape[1:]), qb.device)
+    """Plain version of the keyed tile-fetch kernel: ``random.kernel_bits``
+    (``random.bits`` as the kernel hashes it) under the colour key, then
+    the operand form's plain version."""
+    bits = jr.kernel_bits(key, (2,) + tuple(qb.shape[1:]), qb.device)
     return update_color_tiles_plain(qb, bits, beta, color, rule)
 
 
@@ -241,9 +243,10 @@ def update_color_lines(qb, bits, beta: float, color: int,
 
 def update_color_lines_keyed_plain(qb, key, beta: float, color: int,
                                    rule: str = "metropolis_lut", lines=None):
-    """Plain version of the keyed edge-line kernel: ``random.bits`` under
-    the colour key, then the operand form's plain version."""
-    bits = jr.bits(key, (2,) + tuple(qb.shape[1:]), qb.device)
+    """Plain version of the keyed edge-line kernel: ``random.kernel_bits``
+    (``random.bits`` as the kernel hashes it) under the colour key, then
+    the operand form's plain version."""
+    bits = jr.kernel_bits(key, (2,) + tuple(qb.shape[1:]), qb.device)
     return update_color_lines_plain(qb, bits, beta, color, rule, lines)
 
 

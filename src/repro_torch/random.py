@@ -11,13 +11,19 @@ module reproduces the parts it uses:
   device. Element ``n`` of a draw of shape ``S`` is ``threefry(key, (hi,
   lo))`` of its flat row-major index ``n = hi * 2**32 + lo``, and a 32-bit
   draw is ``out0 ^ out1``. Because every element is addressed by its
-  counter, the draw is generated in chunks without changing a bit;
+  counter, the draw is generated in chunks without changing a bit. Their
+  device work runs inside the ``repro_torch.random.draws`` span, and
+  ``counters["draw_words"]`` counts the 32-bit words they draw (one an
+  element, two for ``randint``), on any device. ``kernel_bits`` is
+  ``bits`` with neither: the bits a keyed kernel hashes in the kernel,
+  which its plain version draws in the kernel's place;
 * ``fold_in_bits`` is ``fold_in`` over a tensor of counters: the last key
   word of ``fold_in(key, c)`` for every element ``c``. Counters on a
   CUDA device take one hand-written kernel pass
   (:func:`repro_torch.kernels.rng.fold_in_bits`, bitwise this module's
   eager form); counters anywhere else run the eager form, and
-  ``counters["fold_in_bits_eager"]`` counts its passes;
+  ``counters["fold_in_bits_eager"]`` counts its passes (the kernel is
+  counted in ``kernels.build.launches``);
 * a *key batch* is a list of keys, one per replica. ``fold_in`` maps over
   it on the host (with one value for all keys, or a list of one value per
   key), and every device draw under it gains a leading replica
@@ -35,13 +41,17 @@ import math
 
 import torch
 
+from repro_torch import spans
+
 Key = tuple  # (k0, k1), two ints in [0, 2**32)
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
-# passes of fold_in_bits' eager form (calls that took no device kernel)
-counters = {"fold_in_bits_eager": 0}
+# passes of fold_in_bits' eager form (calls that took no device kernel), and
+# the 32-bit words drawn by bits, uniform and randint
+counters = {"fold_in_bits_eager": 0, "draw_words": 0}
+DRAWS = "repro_torch.random.draws"
 # Elements per generated chunk: five int64 lanes of this length are live
 # at once (about 1.3 GiB at 2**25).
 CHUNK = 1 << 25
@@ -203,9 +213,9 @@ def _as_int32(v: torch.Tensor) -> torch.Tensor:
     return v.add_(1 << 31).bitwise_and_(_M32).sub_(1 << 31).to(torch.int32)
 
 
-def bits(key, shape, device="cpu") -> torch.Tensor:
-    """``jax.random.bits(key, shape, uint32)`` as an int32 bit pattern
-    (``[R, *shape]`` under a key batch)."""
+def kernel_bits(key, shape, device="cpu") -> torch.Tensor:
+    """:func:`bits` outside the draws span and uncounted: what a keyed
+    kernel's plain version draws in place of the kernel's own hash."""
     shape = tuple(int(s) for s in shape)
     total = math.prod(shape)
     out = torch.empty(_lead(key) + (total,), dtype=torch.int32,
@@ -214,6 +224,14 @@ def bits(key, shape, device="cpu") -> torch.Tensor:
         out[..., start:stop] = _as_int32(_bits_lanes(key, start, stop,
                                                      device))
     return out.view(_lead(key) + shape)
+
+
+def bits(key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as an int32 bit pattern
+    (``[R, *shape]`` under a key batch)."""
+    counters["draw_words"] += _rows(key) * math.prod(int(s) for s in shape)
+    with spans.span(DRAWS):
+        return kernel_bits(key, shape, device)
 
 
 def uniform(key, shape, dtype=torch.float32,
@@ -228,13 +246,15 @@ def uniform(key, shape, dtype=torch.float32,
                          ) from None
     shape = tuple(int(s) for s in shape)
     total = math.prod(shape)
-    out = torch.empty(_lead(key) + (total,), dtype=dtype, device=device)
-    for start, stop in _chunks(total, _rows(key)):
-        v = _bits_lanes(key, start, stop, device)
-        if rng_bits < 32:
-            v.bitwise_and_((1 << rng_bits) - 1)   # the draw is cut short
-        v = (v >> (rng_bits - nmant)).bitwise_or_(one)
-        out[..., start:stop] = v.to(itype).view(dtype) - 1.0
+    counters["draw_words"] += _rows(key) * total
+    with spans.span(DRAWS):
+        out = torch.empty(_lead(key) + (total,), dtype=dtype, device=device)
+        for start, stop in _chunks(total, _rows(key)):
+            v = _bits_lanes(key, start, stop, device)
+            if rng_bits < 32:
+                v.bitwise_and_((1 << rng_bits) - 1)   # the draw is cut short
+            v = (v >> (rng_bits - nmant)).bitwise_or_(one)
+            out[..., start:stop] = v.to(itype).view(dtype) - 1.0
     return out.view(_lead(key) + shape)
 
 
@@ -262,14 +282,16 @@ def randint(key, shape, minval: int, maxval: int,
     multiplier = ((((1 << 16) % span) ** 2) & _M32) % span
     shape = tuple(int(s) for s in shape)
     total = math.prod(shape)
-    out = torch.empty(_lead(key) + (total,), dtype=torch.int32,
-                      device=device)
-    for start, stop in _chunks(total, _rows(key)):
-        hi = _bits_lanes(k1, start, stop, device).remainder_(span)
-        lo = _bits_lanes(k2, start, stop, device).remainder_(span)
-        off = hi.mul_(multiplier).bitwise_and_(_M32).add_(lo)
-        off = off.bitwise_and_(_M32).remainder_(span).add_(int(minval))
-        out[..., start:stop] = off.to(torch.int32)
+    counters["draw_words"] += 2 * _rows(key) * total
+    with spans.span(DRAWS):
+        out = torch.empty(_lead(key) + (total,), dtype=torch.int32,
+                          device=device)
+        for start, stop in _chunks(total, _rows(key)):
+            hi = _bits_lanes(k1, start, stop, device).remainder_(span)
+            lo = _bits_lanes(k2, start, stop, device).remainder_(span)
+            off = hi.mul_(multiplier).bitwise_and_(_M32).add_(lo)
+            off = off.bitwise_and_(_M32).remainder_(span).add_(int(minval))
+            out[..., start:stop] = off.to(torch.int32)
     return out.view(_lead(key) + shape)
 
 

@@ -29,6 +29,20 @@ The spans, each where its work happens so that every caller gets it:
 * ``repro_torch.measure.blocked_totals``: ``core.measure.blocked_totals``,
   the spin and bond sums: the measurement kernel on a CUDA stack, else
   the white colour's neighbour sums (``nn_white``) and the f32 sums;
+* ``repro_torch.checkerboard.nn``: ``core.checkerboard.nn_black`` and
+  ``nn_white``, the Algorithm-2 neighbour sums (the K-hat matmuls and the
+  four halo lines; on a grid the ``edges`` provider, and so its exchange
+  with the neighbouring ranks, runs inside it). The XLA-form colour
+  updates enter it (one rank of a grid, the ``chain`` scenario, the
+  ``ref`` backend), and ``blocked_totals``' f32 chain inside its own
+  span; the keyed kernels and the measurement kernel never do;
+* ``repro_torch.random.draws``: ``random.bits``, ``random.uniform`` and
+  ``random.randint``, the eager threefry draws on the caller's device
+  (``random.counters["draw_words"]`` counts their words); inside
+  ``cluster.bonds`` / ``cluster.coins`` where those call them.
+  ``random.fold_in_bits`` is not in it (its kernel is counted in
+  ``kernels.build.launches``), nor the keyed kernels' plain versions'
+  ``random.kernel_bits``;
 * ``repro_torch.cluster.bonds``: ``cluster.bonds.fk_bonds``, the
   neighbour rolls and compares and the two bond hashes;
 * ``repro_torch.cluster.label``: ``cluster.label.label_components``: on

@@ -59,7 +59,7 @@ def test_cpu_takes_the_eager_form(key):
     got = jr.fold_in_bits(key, c)
     assert got.dtype == torch.int32 and got.shape == c.shape
     assert got.tolist() == _host(key, c.tolist())
-    assert jr.counters == {"fold_in_bits_eager": 1}
+    assert jr.counters == {"fold_in_bits_eager": 1, "draw_words": 0}
     assert build.launches == dict.fromkeys(build.launches, 0)
 
 
@@ -90,7 +90,7 @@ def test_cpu_sweep_counts_three_eager_passes():
     full = torch.ones(16, 16, dtype=torch.float32)
     _zero()
     CS.cluster_sweep(full, jr.PRNGKey(4), B.bond_threshold_u24(0.3))
-    assert jr.counters == {"fold_in_bits_eager": 3}
+    assert jr.counters == {"fold_in_bits_eager": 3, "draw_words": 0}
     assert build.launches == dict.fromkeys(build.launches, 0)
 
 
@@ -102,7 +102,7 @@ def test_kernel_wrapper_runs_the_eager_form_on_the_cpu():
     c = _counters(37, 4)
     assert rng.fold_in_bits(KEYS[1], c).tolist() == _host(KEYS[1],
                                                           c.tolist())
-    assert jr.counters == {"fold_in_bits_eager": 1}
+    assert jr.counters == {"fold_in_bits_eager": 1, "draw_words": 0}
     assert build.launches == dict.fromkeys(build.launches, 0)
     with pytest.raises(TypeError, match="int32"):
         rng.fold_in_bits(KEYS[1], c.long())
@@ -114,7 +114,10 @@ def test_cpu_chain_counts_three_eager_passes_a_sweep(betas):
     kw.update(dict(betas=betas) if betas else dict(beta=0.4406868))
     _zero()
     IsingEngine(EngineConfig(**kw), device="cpu").simulate(11)
-    assert jr.counters == {"fold_in_bits_eager": 3 * kw["n_sweeps"]}
+    # the hot start of the 0.3 replica draws its 32^2 spins, the cold one
+    # (and beta_c's) none
+    assert jr.counters == {"fold_in_bits_eager": 3 * kw["n_sweeps"],
+                           "draw_words": 32 * 32 if betas else 0}
     assert build.launches == dict.fromkeys(build.launches, 0)
 
 
@@ -209,7 +212,7 @@ def test_kernel_takes_other_integer_dtypes(cuda, dtype):
         _zero()
         got = jr.fold_in_bits(key, cc)
         assert build.launches["fold_in_bits"] == 1
-        assert jr.counters == {"fold_in_bits_eager": 0}
+        assert jr.counters == {"fold_in_bits_eager": 0, "draw_words": 0}
         assert got.dtype == torch.int32 and got.shape == cc.shape
         assert torch.equal(got, jr._fold_in_bits_eager(key, cc))
 
@@ -221,7 +224,7 @@ def test_card_refuses_float_counters(cuda, dtype):
     with pytest.raises(TypeError, match="integer counters"):
         jr.fold_in_bits(KEYS[0], torch.zeros(8, dtype=dtype, device=cuda))
     assert build.launches["fold_in_bits"] == 0
-    assert jr.counters == {"fold_in_bits_eager": 0}
+    assert jr.counters == {"fold_in_bits_eager": 0, "draw_words": 0}
 
 
 @pytest.mark.cuda
@@ -235,7 +238,9 @@ def test_swendsen_wang_chain_on_the_card_equals_the_cpu(cuda, betas):
     cpu = IsingEngine(EngineConfig(**kw), device="cpu").simulate(11)
     _zero()
     card = IsingEngine(EngineConfig(**kw), device=cuda).simulate(11)
-    assert jr.counters == {"fold_in_bits_eager": 0}
+    # the 0.3 replica's hot start draws its spins
+    assert jr.counters == {"fold_in_bits_eager": 0,
+                           "draw_words": 256 * 256 if betas else 0}
     assert build.launches["fold_in_bits"] == 3 * kw["n_sweeps"]
     assert torch.equal(card.state.cpu(), cpu.state)
     assert torch.equal(card.magnetization.cpu(), cpu.magnetization)
@@ -251,5 +256,5 @@ def test_one_sweep_on_the_card_is_three_launches(cuda):
     _zero()
     got = CS.cluster_sweep(full.to(cuda), jr.PRNGKey(8), t)
     assert build.launches["fold_in_bits"] == 3
-    assert jr.counters == {"fold_in_bits_eager": 0}
+    assert jr.counters == {"fold_in_bits_eager": 0, "draw_words": 0}
     assert torch.equal(got.cpu(), want)

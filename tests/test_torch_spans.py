@@ -49,26 +49,32 @@ def _same(a, b):
 
 @pytest.mark.parametrize("measure", [True, False])
 def test_kernel_chunk_records_each_stage(measure):
-    """A kernel-backend chunk of n sweeps: one block and one unblock
-    copy; measured, n ``blocked_totals`` and one copy of the series to
-    the host."""
+    """A kernel-backend chunk of n sweeps from a hot start: the start's
+    one draw, one block and one unblock copy (the keyed kernels draw
+    their own bits); measured, n ``blocked_totals`` and one copy of the
+    series to the host. On the CPU ``blocked_totals`` takes the f32 chain
+    and its ``nn_white``; on the card the measurement kernel."""
     _, counts = _profiled(lambda: _chunk(KERNEL, measure))
-    want = {"repro_torch.kernels.block": 1,
+    want = {"repro_torch.random.draws": 1,
+            "repro_torch.kernels.block": 1,
             "repro_torch.kernels.unblock": 1}
     if measure:
         want |= {"repro_torch.measure.blocked_totals": SWEEPS,
+                 "repro_torch.checkerboard.nn": SWEEPS,
                  "repro_torch.engine.series.sync": 1}
     assert dict(counts) == want
 
 
 def test_cluster_chunk_records_each_stage():
-    """A Swendsen-Wang chunk: bonds, labels and coins once a sweep, one
-    label sync an iteration, one copy of the series to the host."""
+    """A Swendsen-Wang chunk from a hot start: the start's one draw;
+    bonds, labels and coins once a sweep, one label sync an iteration,
+    one copy of the series to the host."""
     before = LBL.counters["iterations"]
     _, counts = _profiled(lambda: _chunk(CLUSTER))
     iters = LBL.counters["iterations"] - before
     assert iters >= SWEEPS
-    assert dict(counts) == {"repro_torch.cluster.bonds": SWEEPS,
+    assert dict(counts) == {"repro_torch.random.draws": 1,
+                            "repro_torch.cluster.bonds": SWEEPS,
                             "repro_torch.cluster.label": SWEEPS,
                             "repro_torch.cluster.label.sync": iters,
                             "repro_torch.cluster.coins": SWEEPS,
@@ -92,3 +98,82 @@ def test_outputs_bitwise_under_the_profiler(cfg):
     traced, counts = _profiled(lambda: _chunk(cfg))
     assert counts
     _same(traced, plain)
+
+
+# --- the launcher's default path: eager draws and K-hat neighbour sums -------
+
+GRID_SIZE = 64
+
+
+def _free_chunk(path: str):
+    """One ``run_sweeps`` chunk of SWEEPS sweeps on a 64^2 lattice from a
+    fixed +-1 start, no init inside: ``grid``, the simulate launcher's
+    default engine (a 1 x 1 grid, the paper pipeline, bf16 uniforms), or
+    ``tiles``, the keyed tile kernel."""
+    from repro_torch.launch import simulate
+
+    g = torch.Generator().manual_seed(5)
+    quads = (torch.randint(0, 2, (4, GRID_SIZE // 2, GRID_SIZE // 2),
+                           generator=g) * 2 - 1).to(torch.bfloat16)
+    if path == "grid":
+        cfg = simulate.build(simulate.parse_args([
+            "--mesh", "1,1", "--blocks-per-device", "4", "--block-size", "8",
+            "--chunk", str(SWEEPS)]))[0]
+        m = GRID_SIZE // 2 // 8      # blocked [4, m, m, 8, 8], as the grid
+        state = quads.view(4, m, 8, m, 8).permute(0, 1, 3, 2, 4).contiguous()
+    else:
+        cfg = EngineConfig(**KERNEL, measure=False)
+        state = quads
+    eng = IsingEngine(cfg, device="cpu")
+    return eng.run_sweeps(state, jr.fold_in(jr.PRNGKey(3), 0), SWEEPS)
+
+
+@pytest.mark.parametrize("path", ["grid", "tiles"])
+def test_draws_and_neighbour_sums_on_the_grid_path_only(path):
+    """The grid's colour update draws its uniforms and forms its K-hat sums
+    once a colour; the keyed tile path draws in its kernel and does
+    neither."""
+    _, counts = _profiled(lambda: _free_chunk(path))
+    grid = {"repro_torch.random.draws": 2 * SWEEPS,
+            "repro_torch.checkerboard.nn": 2 * SWEEPS}
+    assert dict(counts) == (grid if path == "grid" else
+                            {"repro_torch.kernels.block": 1,
+                             "repro_torch.kernels.unblock": 1})
+
+
+@pytest.mark.parametrize("path", ["grid", "tiles"])
+def test_draw_words_count_one_word_a_site_a_sweep(path):
+    jr.reset_counters()
+    _free_chunk(path)
+    want = GRID_SIZE ** 2 * SWEEPS if path == "grid" else 0
+    assert jr.counters == {"fold_in_bits_eager": 0, "draw_words": want}
+
+
+def test_draw_words_of_each_draw():
+    """One word an element of ``bits`` and ``uniform``, two of ``randint``;
+    a key batch draws a row a key; ``kernel_bits`` counts none."""
+    key = jr.PRNGKey(9)
+    jr.reset_counters()
+    jr.bits(key, (3, 5))
+    jr.uniform(key, (7,), torch.bfloat16)
+    jr.uniform([key, jr.fold_in(key, 1)], (4,))
+    jr.randint(key, (6,), 0, 10)
+    jr.kernel_bits(key, (100,))
+    assert jr.counters["draw_words"] == 15 + 7 + 2 * 4 + 2 * 6
+    assert torch.equal(jr.kernel_bits(key, (3, 5)), jr.bits(key, (3, 5)))
+
+
+def test_grid_path_enters_no_range_without_a_profiler(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"a range {name!r} with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    _free_chunk("grid")
+
+
+def test_grid_path_bitwise_under_the_profiler():
+    plain = _free_chunk("grid")
+    traced, counts = _profiled(lambda: _free_chunk("grid"))
+    assert counts
+    assert traced.dtype == plain.dtype and torch.equal(traced, plain)
