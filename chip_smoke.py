@@ -35,6 +35,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     at the Swendsen-Wang cells' two betas, a stack of 4 x 1000^2 and
     ragged 37 x 53; then one 5120^2 Swendsen-Wang sweep through
     ``IsingEngine``: 1 label launch, 0 label iterations;
+3d. the draw kernel (``kernels.rng.draw``, which ``random.bits``,
+    ``uniform``, ``bernoulli`` and ``randint`` launch on the card) bitwise
+    against its eager int64 form (``random._draw_eager``) at the launcher's
+    colour draw [2, 80, 80, 128, 128]: bf16 uniforms under one key, f32
+    uniforms under a 16-key batch and randint in [-3, 4), one launch each;
+    then one 20480^2 sweep of the launcher's default engine (a 1 x 1 grid,
+    the paper pipeline): 2 draw launches;
 4. the main path at full size: ``IsingEngine(EngineConfig(size=20480,
    beta=0.4406868, backend=b, hot=True)).simulate(0)`` for b in pallas and
    pallas_lines, measured, with every launch count reset just before and
@@ -154,7 +161,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     bytes a site) and its plain version, the fold-in kernel at 5120^2
     against its bound (bytes or integer issue, whichever is larger) and
     its eager form, the label kernel at 5120^2 (both cells' betas) against
-    its byte bound and the plain propagation, blocked_stats, and the kernel
+    its byte bound and the plain propagation, the draw kernel at the
+    launcher's colour draw against its bound (integer issue or bytes,
+    whichever is larger) and its eager form, blocked_stats, and the kernel
     path's sweeps per second measured and not (flips/ns), peak memory.
 
 Every path of phases 4-9 runs with the kernel launch counts
@@ -205,6 +214,9 @@ LINES_CU = "src/repro_torch/kernels/csrc/checkerboard_lines.cu"
 TOTALS_CU = "src/repro_torch/kernels/csrc/blocked_totals.cu"
 FOLD_CU = "src/repro_torch/kernels/csrc/threefry_fold.cu"
 LABEL_CU = "src/repro_torch/kernels/csrc/label_components.cu"
+DRAW_CU = "src/repro_torch/kernels/csrc/threefry_draw.cu"
+# the launcher's colour draw at 20480^2: [2, 80, 80, 128, 128]
+DRAW_SHAPE = (2, SIZE // 2 // BS, SIZE // 2 // BS, BS, BS)
 SW_SIZE = 5120               # the Swendsen-Wang cells' lattice
 # the Swendsen-Wang cells' betas (1.1 T_c and 2 T_c)
 SW_BETAS = {"sw-near-critical": 0.4006244, "sw-hot": 0.2203434}
@@ -237,6 +249,11 @@ SWEEP_LAUNCHES = (*KERNELS, "blocked_totals")
 # the 20 rounds' adds with the 5 injections of both key words (either
 # pipe).
 FOLD_ALU_ONLY, FOLD_ADDS = 20 + 20, 20 + 10
+# What one word of the draw kernel needs, as perfbench's draw_roofline_pct
+# counts it: x0 ^ x1 of threefry2x32, so the 20 rotations and 21 xors (ALU
+# only) and the 20 rounds' adds with the 5 injections and the last one's
+# two (either pipe).
+DRAW_ALU_ONLY, DRAW_ADDS = 20 + 21, 20 + 5 + 2
 
 
 def log(*args):
@@ -502,6 +519,77 @@ def phase_fold_in(errs: dict, launches: dict) -> None:
     launches["fold_in_bits"] = counts[0]
     log(f"one {n}^2 Swendsen-Wang sweep (IsingEngine, measured): "
         f"{counts[0]} fold-in launches, {counts[1]} eager passes")
+
+
+def _draw_equals_eager(label: str, draw, eager, words: int,
+                       errs: dict) -> None:
+    """``draw()`` (one of ``random``'s draws on the card): one draw kernel
+    launch, ``words`` words counted, bitwise ``eager()``."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.kernels import build
+    reset_launches()
+    got = draw()
+    counts = (build.launches["threefry_draw"], jr.counters["draw_words"])
+    want = eager()
+    ints = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    bad = int((got.view(ints) != want.view(ints)).sum())
+    errs["threefry_draw"] = max(errs["threefry_draw"], bad)
+    if counts != (1, words) or bad or got.shape != want.shape \
+            or got.dtype != want.dtype:
+        raise AssertionError(f"draw {label}: (launches, words) {counts}, "
+                             f"want (1, {words}); {bad} elements differ")
+    del got, want
+    torch.cuda.synchronize()
+
+
+def phase_draw(errs: dict, launches: dict) -> None:
+    """The draw kernel bitwise against the eager form at the launcher's
+    colour draw, and its launches in one 20480^2 sweep of the launcher's
+    default engine."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.api import IsingEngine
+    from repro_torch.kernels import build
+    from repro_torch.launch import simulate
+    key = jr.fold_in(jr.PRNGKey(61), 2)
+    keys = [jr.fold_in(key, i) for i in range(16)]
+    n = math.prod(DRAW_SHAPE)
+    _draw_equals_eager(
+        f"bf16 {list(DRAW_SHAPE)}",
+        lambda: jr.uniform(key, DRAW_SHAPE, torch.bfloat16, "cuda"),
+        lambda: jr._draw_eager(key, DRAW_SHAPE, torch.bfloat16, "cuda"),
+        n, errs)
+    _draw_equals_eager(
+        f"f32 16 x {list(DRAW_SHAPE)}",
+        lambda: jr.uniform(keys, DRAW_SHAPE, torch.float32, "cuda"),
+        lambda: jr._draw_eager(keys, DRAW_SHAPE, torch.float32, "cuda"),
+        16 * n, errs)
+    _draw_equals_eager(
+        f"randint [-3, 4) {list(DRAW_SHAPE)}",
+        lambda: jr.randint(key, DRAW_SHAPE, -3, 4, "cuda"),
+        lambda: jr._draw_eager(key, DRAW_SHAPE, torch.int32, "cuda",
+                               (-3, 4)), 2 * n, errs)
+    log(f"draw kernel == eager form on the card: {list(DRAW_SHAPE)} bf16 "
+        "uniforms, 16-key f32 uniforms, randint [-3, 4); one launch each")
+    cfg = simulate.build(simulate.parse_args([
+        "--mesh", "1,1", "--blocks-per-device", str(DRAW_SHAPE[1]),
+        "--block-size", str(BS), "--chunk", "1"]))[0]
+    eng = IsingEngine(cfg, device="cuda")
+    state = (jr.bernoulli(key, 0.5, (4,) + DRAW_SHAPE[1:], "cuda")
+             .to(torch.bfloat16) * 2 - 1)
+    eng.run_sweeps(state, jr.fold_in(key, 1), 1)         # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    eng.run_sweeps(state, jr.fold_in(key, 2), 1)
+    torch.cuda.synchronize()
+    counts = (build.launches["threefry_draw"], jr.counters["draw_words"])
+    if counts != (2, SIZE * SIZE):
+        raise AssertionError(f"one {SIZE}^2 launcher sweep: (draw launches, "
+                             f"words) {counts}, want (2, {SIZE * SIZE})")
+    launches["threefry_draw"] = counts[0]
+    log(f"one {SIZE}^2 sweep of the launcher's engine: {counts[0]} draw "
+        f"launches, {counts[1]} words")
 
 
 def sw_bonds(beta: float, n: int = SW_SIZE, sweeps: int = 3) -> tuple:
@@ -3022,6 +3110,58 @@ def phase_fold_in_timing(errs: dict, launches: dict, clock_hz: float,
         library_ms=None)
 
 
+def phase_draw_timing(errs: dict, launches: dict, clock_hz: float,
+                      sms: int) -> dict:
+    """The draw kernel at the launcher's colour draw (bf16 uniforms under
+    one key) against its bound and its eager form, and beside it f32
+    uniforms under a 16-key batch and randint at the same shape; the bound
+    is integer issue (``DRAW_*`` a word) or bytes (the output written
+    once), whichever is larger."""
+    import torch
+    from perfbench.work import INT_PER_CLOCK, ISSUE_PER_CLOCK
+    from repro_torch import random as jr
+    from repro_torch.kernels import rng
+    n = math.prod(DRAW_SHAPE)
+    key = jr.fold_in(jr.PRNGKey(63), 0)
+    _draw_equals_eager(
+        "timed bf16", lambda: jr.uniform(key, DRAW_SHAPE, torch.bfloat16,
+                                         "cuda"),
+        lambda: jr._draw_eager(key, DRAW_SHAPE, torch.bfloat16, "cuda"), n,
+        errs)
+    clocks = max(DRAW_ALU_ONLY / INT_PER_CLOCK,
+                 (DRAW_ALU_ONLY + DRAW_ADDS) / ISSUE_PER_CLOCK)
+
+    def bound(words, nbytes):
+        return max((words * clocks / (sms * clock_hz) * 1e3,
+                    "integer issue"),
+                   (words * nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+
+    ms = time_ms(lambda: rng.draw(key, DRAW_SHAPE, torch.bfloat16, "cuda"),
+                 reps=50)
+    eager_ms = time_ms(lambda: jr._draw_eager(key, DRAW_SHAPE,
+                                              torch.bfloat16, "cuda"),
+                       reps=3, warmup=1)
+    b_ms, b_by = bound(n, 2)
+    keys = [jr.fold_in(key, i) for i in range(16)]
+    f32_ms = time_ms(lambda: rng.draw(keys, DRAW_SHAPE, torch.float32,
+                                      "cuda"), reps=10)
+    f32_bound = bound(16 * n, 4)[0]
+    int_ms = time_ms(lambda: rng.draw(key, DRAW_SHAPE, torch.int32, "cuda",
+                                      (-3, 4)), reps=20)
+    int_bound = bound(2 * n, 4)[0]
+    log(f"time draw bf16 {list(DRAW_SHAPE)}: {ms:.4f} ms per launch, bound "
+        f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound; eager form "
+        f"{eager_ms:.3f} ms; f32 16 keys {f32_ms:.4f} ms "
+        f"({f32_bound / f32_ms:.1%} of {f32_bound:.4f}); randint [-3, 4) "
+        f"{int_ms:.4f} ms (two hashes a word and three remainders: "
+        f"{int_bound / int_ms:.1%} of {int_bound:.4f})")
+    return dict(
+        name="threefry_draw", route="cuda", source=DRAW_CU, replaces=None,
+        launches=launches["threefry_draw"], max_abs_err=errs["threefry_draw"],
+        ms=ms, plain_ms=eager_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, f32_batch16_ms=f32_ms, randint_ms=int_ms)
+
+
 def phase_label_timing(errs: dict, launches: dict) -> dict:
     """The label kernel at the Swendsen-Wang cells' shape, on FK bonds at
     each cell's beta, against its byte bound (the two masks read and the
@@ -3141,6 +3281,7 @@ def phase_timing(launches: dict, errs: dict, sweeps: int = 20) -> tuple:
         f"sums and means): {stats_ms:.4f} ms per sweep")
     records.append(fold)
     records.append(phase_label_timing(errs, launches))
+    records.append(phase_draw_timing(errs, launches, clock_hz, sms))
     del qb, bits
     runs = {}
     for backend, (keyed, _) in BACKENDS.items():
@@ -3183,13 +3324,14 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     phase_build()
-    errs = {name: 0.0 for name in (*KERNELS, "blocked_totals",
-                                   "fold_in_bits", "label_components")}
-    launches = {name: 0 for name in (*KERNELS, "blocked_totals",
-                                     "fold_in_bits", "label_components")}
+    names = (*KERNELS, "blocked_totals", "fold_in_bits", "label_components",
+             "threefry_draw")
+    errs = {name: 0.0 for name in names}
+    launches = {name: 0 for name in names}
     phase_kernels_vs_plain(errs)
     phase_fold_in(errs, launches)
     phase_label(errs, launches)
+    phase_draw(errs, launches)
     phase_main_path(launches)
     phase_small_and_chain()
     t_lm = time.perf_counter()

@@ -10,13 +10,18 @@ module reproduces the parts it uses:
 * ``bits``, ``uniform``, ``bernoulli`` and ``randint`` run on the caller's
   device. Element ``n`` of a draw of shape ``S`` is ``threefry(key, (hi,
   lo))`` of its flat row-major index ``n = hi * 2**32 + lo``, and a 32-bit
-  draw is ``out0 ^ out1``. Because every element is addressed by its
-  counter, the draw is generated in chunks without changing a bit. Their
-  device work runs inside the ``repro_torch.random.draws`` span, and
-  ``counters["draw_words"]`` counts the 32-bit words they draw (one an
-  element, two for ``randint``), on any device. ``kernel_bits`` is
-  ``bits`` with neither: the bits a keyed kernel hashes in the kernel,
-  which its plain version draws in the kernel's place;
+  draw is ``out0 ^ out1``. On a CUDA device a draw is one kernel launch
+  (:func:`repro_torch.kernels.rng.draw`, counted in
+  ``kernels.build.launches["threefry_draw"]``) that hashes each element
+  and writes it in the draw's dtype; on any other device it runs the eager
+  form, :func:`_draw_eager`, the oracle the kernel is held to. Because
+  every element is addressed by its counter, the eager form draws in
+  chunks without changing a bit. Either runs inside the
+  ``repro_torch.random.draws`` span, and ``counters["draw_words"]``
+  counts the 32-bit words they draw (one an element, two for
+  ``randint``), on any device. ``kernel_bits`` is ``bits`` with neither:
+  the bits a keyed kernel hashes in the kernel, which its plain version
+  draws in the kernel's place;
 * ``fold_in_bits`` is ``fold_in`` over a tensor of counters: the last key
   word of ``fold_in(key, c)`` for every element ``c``. Counters on a
   CUDA device take one hand-written kernel pass
@@ -30,10 +35,11 @@ module reproduces the parts it uses:
   axis whose row ``i`` is bitwise the draw under key ``i`` alone, so R
   replicas are drawn in one pass.
 
-The uint32 arithmetic runs in int64 lanes masked to 32 bits: PyTorch has
-no ``+``, ``<<``, ``>>`` or ``<`` for ``torch.uint32`` on the CPU. Raw
-32-bit draws come back as ``torch.int32`` tensors holding the uint32 bit
-pattern, the layout the kernels read.
+The eager forms' uint32 arithmetic runs in int64 lanes masked to 32 bits:
+PyTorch has no ``+``, ``<<``, ``>>`` or ``<`` for ``torch.uint32`` on the
+CPU. On a CUDA device no draw or ``fold_in_bits`` takes them: the kernels
+hash in 32-bit registers. Raw 32-bit draws come back as ``torch.int32``
+tensors holding the uint32 bit pattern, the layout the kernels read.
 """
 from __future__ import annotations
 
@@ -52,8 +58,8 @@ _PARITY = 0x1BD11BDA
 # the 32-bit words drawn by bits, uniform and randint
 counters = {"fold_in_bits_eager": 0, "draw_words": 0}
 DRAWS = "repro_torch.random.draws"
-# Elements per generated chunk: five int64 lanes of this length are live
-# at once (about 1.3 GiB at 2**25).
+# Elements per chunk of the eager forms: five int64 lanes of this length
+# are live at once (about 1.3 GiB at 2**25).
 CHUNK = 1 << 25
 
 # (random bits drawn, mantissa bits, bit pattern of 1.0, carrier) per
@@ -213,17 +219,64 @@ def _as_int32(v: torch.Tensor) -> torch.Tensor:
     return v.add_(1 << 31).bitwise_and_(_M32).sub_(1 << 31).to(torch.int32)
 
 
+def _randint_form(key, minval: int, maxval: int) -> tuple:
+    """randint's two split key sets, its span and its multiplier
+    ``((2**16 % span)**2 mod 2**32) % span`` (0 once span > 2**16)."""
+    if is_batch(key):
+        k1, k2 = (list(ks) for ks in zip(*map(split, key)))
+    else:
+        k1, k2 = split(key)
+    span = (int(maxval) - int(minval)) & _M32 if maxval > minval else 1
+    multiplier = ((((1 << 16) % span) ** 2) & _M32) % span
+    return k1, k2, span, multiplier
+
+
+def _draw(key, shape, dtype, device, bounds=None) -> torch.Tensor:
+    """The elements of ``bits`` (int32), ``uniform`` (a float dtype) or,
+    with ``bounds = (minval, maxval)``, ``randint`` under ``key``: on a CUDA
+    device one kernel launch (:func:`repro_torch.kernels.rng.draw`), on any
+    other the eager form."""
+    shape = tuple(int(s) for s in shape)
+    if torch.device(device).type == "cuda":
+        from repro_torch.kernels import rng
+        return rng.draw(key, shape, dtype, device, bounds)
+    return _draw_eager(key, shape, dtype, device, bounds)
+
+
+def _draw_eager(key, shape, dtype=torch.int32, device="cpu", bounds=None,
+                start: int = 0) -> torch.Tensor:
+    """:func:`_draw` in int64 lanes, ``CHUNK`` lanes a pass, on any device:
+    element e from counter ``start + e``. The oracle the kernel is held
+    to."""
+    total = math.prod(shape)
+    out = torch.empty(_lead(key) + (total,), dtype=dtype, device=device)
+    if bounds is not None:
+        k1, k2, span, multiplier = _randint_form(key, *bounds)
+    elif dtype != torch.int32:
+        rng_bits, nmant, one, itype = _FLOAT_LAYOUT[dtype]
+    for a, b in _chunks(total, _rows(key)):
+        c0, c1 = start + a, start + b
+        if bounds is not None:
+            hi = _bits_lanes(k1, c0, c1, device).remainder_(span)
+            lo = _bits_lanes(k2, c0, c1, device).remainder_(span)
+            off = hi.mul_(multiplier).bitwise_and_(_M32).add_(lo)
+            off = off.bitwise_and_(_M32).remainder_(span).add_(int(bounds[0]))
+            out[..., a:b] = off.to(torch.int32)
+        elif dtype == torch.int32:
+            out[..., a:b] = _as_int32(_bits_lanes(key, c0, c1, device))
+        else:
+            v = _bits_lanes(key, c0, c1, device)
+            if rng_bits < 32:
+                v.bitwise_and_((1 << rng_bits) - 1)   # the draw is cut short
+            v = (v >> (rng_bits - nmant)).bitwise_or_(one)
+            out[..., a:b] = v.to(itype).view(dtype) - 1.0
+    return out.view(_lead(key) + shape)
+
+
 def kernel_bits(key, shape, device="cpu") -> torch.Tensor:
     """:func:`bits` outside the draws span and uncounted: what a keyed
     kernel's plain version draws in place of the kernel's own hash."""
-    shape = tuple(int(s) for s in shape)
-    total = math.prod(shape)
-    out = torch.empty(_lead(key) + (total,), dtype=torch.int32,
-                      device=device)
-    for start, stop in _chunks(total, _rows(key)):
-        out[..., start:stop] = _as_int32(_bits_lanes(key, start, stop,
-                                                     device))
-    return out.view(_lead(key) + shape)
+    return _draw(key, shape, torch.int32, device)
 
 
 def bits(key, shape, device="cpu") -> torch.Tensor:
@@ -238,24 +291,12 @@ def uniform(key, shape, dtype=torch.float32,
             device="cpu") -> torch.Tensor:
     """``jax.random.uniform(key, shape, dtype)`` on [0, 1) (``[R, *shape]``
     under a key batch)."""
-    try:
-        rng_bits, nmant, one, itype = _FLOAT_LAYOUT[dtype]
-    except KeyError:
+    if dtype not in _FLOAT_LAYOUT:
         raise ValueError(f"uniform draws support "
-                         f"{sorted(map(str, _FLOAT_LAYOUT))}, got {dtype}"
-                         ) from None
-    shape = tuple(int(s) for s in shape)
-    total = math.prod(shape)
-    counters["draw_words"] += _rows(key) * total
+                         f"{sorted(map(str, _FLOAT_LAYOUT))}, got {dtype}")
+    counters["draw_words"] += _rows(key) * math.prod(int(s) for s in shape)
     with spans.span(DRAWS):
-        out = torch.empty(_lead(key) + (total,), dtype=dtype, device=device)
-        for start, stop in _chunks(total, _rows(key)):
-            v = _bits_lanes(key, start, stop, device)
-            if rng_bits < 32:
-                v.bitwise_and_((1 << rng_bits) - 1)   # the draw is cut short
-            v = (v >> (rng_bits - nmant)).bitwise_or_(one)
-            out[..., start:stop] = v.to(itype).view(dtype) - 1.0
-    return out.view(_lead(key) + shape)
+        return _draw(key, shape, dtype, device)
 
 
 def bernoulli(key, p: float = 0.5, shape=(),
@@ -274,25 +315,10 @@ def randint(key, shape, minval: int, maxval: int,
     and sums wrap at 2**32: ``((hi % span) * m + lo % span) % span`` with
     ``m = ((2**16 % span)**2 mod 2**32) % span`` (0 once span > 2**16).
     """
-    if is_batch(key):
-        k1, k2 = (list(ks) for ks in zip(*map(split, key)))
-    else:
-        k1, k2 = split(key)
-    span = (int(maxval) - int(minval)) & _M32 if maxval > minval else 1
-    multiplier = ((((1 << 16) % span) ** 2) & _M32) % span
-    shape = tuple(int(s) for s in shape)
-    total = math.prod(shape)
-    counters["draw_words"] += 2 * _rows(key) * total
+    counters["draw_words"] += 2 * _rows(key) * math.prod(int(s)
+                                                         for s in shape)
     with spans.span(DRAWS):
-        out = torch.empty(_lead(key) + (total,), dtype=torch.int32,
-                          device=device)
-        for start, stop in _chunks(total, _rows(key)):
-            hi = _bits_lanes(k1, start, stop, device).remainder_(span)
-            lo = _bits_lanes(k2, start, stop, device).remainder_(span)
-            off = hi.mul_(multiplier).bitwise_and_(_M32).add_(lo)
-            off = off.bitwise_and_(_M32).remainder_(span).add_(int(minval))
-            out[..., start:stop] = off.to(torch.int32)
-    return out.view(_lead(key) + shape)
+        return _draw(key, shape, torch.int32, device, (minval, maxval))
 
 
 def fold_in_bits(key, counters: torch.Tensor) -> torch.Tensor:

@@ -37,7 +37,8 @@ The spans, each where its work happens so that every caller gets it:
   ``ref`` backend), and ``blocked_totals``' f32 chain inside its own
   span; the keyed kernels and the measurement kernel never do;
 * ``repro_torch.random.draws``: ``random.bits``, ``random.uniform`` and
-  ``random.randint``, the eager threefry draws on the caller's device
+  ``random.randint``, the threefry draws on the caller's device: on the
+  card the draw kernel's launch, elsewhere the eager int64 form
   (``random.counters["draw_words"]`` counts their words); inside
   ``cluster.bonds`` / ``cluster.coins`` where those call them.
   ``random.fold_in_bits`` is not in it (its kernel is counted in
