@@ -42,6 +42,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     uniforms under a 16-key batch and randint in [-3, 4), one launch each;
     then one 20480^2 sweep of the launcher's default engine (a 1 x 1 grid,
     the paper pipeline): 2 draw launches;
+3e. the flip kernel (``kernels.flip.flip_lut``, which
+    ``core.checkerboard._flip`` launches on the card for the LUT rule at a
+    number beta and no field) bitwise against the eager LUT chain
+    (``update_rules``' ``flip_probs``) at a quad of the launcher's colour
+    update [80, 80, 128, 128] at T_c: bf16 spins and uniforms into a new
+    tensor and in place, bf16 spins with f32 uniforms, f32 spins with bf16
+    uniforms, one launch each; then one 20480^2 sweep of the launcher's
+    default engine: 4 flip launches. Phases 3b and 4 read 0 flip launches
+    on the Swendsen-Wang and keyed paths;
 4. the main path at full size: ``IsingEngine(EngineConfig(size=20480,
    beta=0.4406868, backend=b, hot=True)).simulate(0)`` for b in pallas and
    pallas_lines, measured, with every launch count reset just before and
@@ -163,7 +172,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     its eager form, the label kernel at 5120^2 (both cells' betas) against
     its byte bound and the plain propagation, the draw kernel at the
     launcher's colour draw against its bound (integer issue or bytes,
-    whichever is larger) and its eager form, blocked_stats, and the kernel
+    whichever is larger) and its eager form, the flip kernel at a quad of
+    the launcher's colour update in place against its byte bound (8 B a
+    site) and the eager chain with its copy into the stack, blocked_stats, and the kernel
     path's sweeps per second measured and not (flips/ns), peak memory.
 
 Every path of phases 4-9 runs with the kernel launch counts
@@ -217,6 +228,9 @@ LABEL_CU = "src/repro_torch/kernels/csrc/label_components.cu"
 DRAW_CU = "src/repro_torch/kernels/csrc/threefry_draw.cu"
 # the launcher's colour draw at 20480^2: [2, 80, 80, 128, 128]
 DRAW_SHAPE = (2, SIZE // 2 // BS, SIZE // 2 // BS, BS, BS)
+FLIP_CU = "src/repro_torch/kernels/csrc/metropolis_flip.cu"
+# a quad of the launcher's colour update at 20480^2: [80, 80, 128, 128]
+FLIP_SHAPE = DRAW_SHAPE[1:]
 SW_SIZE = 5120               # the Swendsen-Wang cells' lattice
 # the Swendsen-Wang cells' betas (1.1 T_c and 2 T_c)
 SW_BETAS = {"sw-near-critical": 0.4006244, "sw-hot": 0.2203434}
@@ -513,9 +527,10 @@ def phase_fold_in(errs: dict, launches: dict) -> None:
     torch.cuda.synchronize()
     counts = (build.launches["fold_in_bits"],
               jr.counters["fold_in_bits_eager"])
-    if counts != (3, 0):
+    if counts != (3, 0) or build.launches["flip_lut"]:
         raise AssertionError(f"one {n}^2 SW sweep: (fold-in launches, eager "
-                             f"passes) {counts}, want (3, 0)")
+                             f"passes) {counts}, want (3, 0); flip "
+                             f"launches {build.launches['flip_lut']}, want 0")
     launches["fold_in_bits"] = counts[0]
     log(f"one {n}^2 Swendsen-Wang sweep (IsingEngine, measured): "
         f"{counts[0]} fold-in launches, {counts[1]} eager passes")
@@ -590,6 +605,87 @@ def phase_draw(errs: dict, launches: dict) -> None:
     launches["threefry_draw"] = counts[0]
     log(f"one {SIZE}^2 sweep of the launcher's engine: {counts[0]} draw "
         f"launches, {counts[1]} words")
+
+
+def flip_inputs(seed: int, spin, prob) -> tuple:
+    """+-1 spins, neighbour sums in {-4, -2, 0, 2, 4} and uniforms over
+    ``FLIP_SHAPE`` on the card."""
+    import torch
+    from repro_torch import random as jr
+    key = jr.fold_in(jr.PRNGKey(seed), 0)
+    sigma = jr.bernoulli(key, 0.5, FLIP_SHAPE, "cuda").to(spin) * 2 - 1
+    nn = (jr.randint(jr.fold_in(key, 1), FLIP_SHAPE, 0, 5, "cuda") * 2
+          - 4).to(spin)
+    probs = jr.uniform(jr.fold_in(key, 2), FLIP_SHAPE, prob, "cuda")
+    torch.cuda.synchronize()
+    return sigma, nn, probs
+
+
+def _flip_equals_eager(label: str, sigma, nn, probs, errs: dict,
+                       out=None) -> None:
+    """``core.checkerboard._flip`` of the LUT rule at T_c on the card: one
+    flip launch, bitwise the eager chain."""
+    import torch
+    from repro_torch.core import checkerboard as cb
+    from repro_torch.core import update_rules as rules
+    from repro_torch.kernels import build
+    want = rules.get_rule("lut").flip_probs(sigma, nn, probs, BETA)
+    reset_launches()
+    got = cb._flip(sigma, nn, probs, BETA, "lut", out=out)
+    count = build.launches["flip_lut"]
+    ints = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    bad = int((got.view(ints) != want.view(ints)).sum())
+    errs["flip_lut"] = max(errs["flip_lut"], bad)
+    if count != 1 or bad or (out is not None and got is not out):
+        raise AssertionError(f"flip {label}: {count} launches, want 1; "
+                             f"{bad} sites differ")
+    del got, want
+    torch.cuda.synchronize()
+
+
+def phase_flip(errs: dict, launches: dict) -> None:
+    """The flip kernel bitwise against the eager LUT chain at a quad of the
+    launcher's colour update, and its launches in one 20480^2 sweep of the
+    launcher's default engine."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.api import IsingEngine
+    from repro_torch.kernels import build
+    from repro_torch.launch import simulate
+    bf16, f32 = torch.bfloat16, torch.float32
+    shape = list(FLIP_SHAPE)
+    sigma, nn, probs = flip_inputs(71, bf16, bf16)
+    _flip_equals_eager(f"bf16 {shape}", sigma, nn, probs, errs)
+    _flip_equals_eager(f"bf16 {shape} in place", sigma, nn, probs, errs,
+                       out=sigma)
+    del sigma, nn, probs
+    for spin, prob in ((bf16, f32), (f32, bf16)):
+        sigma, nn, probs = flip_inputs(72, spin, prob)
+        _flip_equals_eager(f"{spin} spins, {prob} uniforms {shape}", sigma,
+                           nn, probs, errs)
+        del sigma, nn, probs
+    log(f"flip kernel == eager LUT chain on the card: {shape} at T_c, bf16 "
+        "spins and uniforms (new tensor and in place), bf16 / f32, f32 / "
+        "bf16; one launch each")
+    cfg = simulate.build(simulate.parse_args([
+        "--mesh", "1,1", "--blocks-per-device", str(FLIP_SHAPE[0]),
+        "--block-size", str(BS), "--chunk", "1"]))[0]
+    eng = IsingEngine(cfg, device="cuda")
+    key = jr.fold_in(jr.PRNGKey(73), 0)
+    state = (jr.bernoulli(key, 0.5, (4,) + FLIP_SHAPE, "cuda")
+             .to(bf16) * 2 - 1)
+    eng.run_sweeps(state, jr.fold_in(key, 1), 1)         # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    eng.run_sweeps(state, jr.fold_in(key, 2), 1)
+    torch.cuda.synchronize()
+    if build.launches["flip_lut"] != 4:
+        raise AssertionError(f"one {SIZE}^2 launcher sweep: "
+                             f"{build.launches['flip_lut']} flip launches, "
+                             "want 4")
+    launches["flip_lut"] = build.launches["flip_lut"]
+    log(f"one {SIZE}^2 sweep of the launcher's engine: "
+        f"{launches['flip_lut']} flip launches")
 
 
 def sw_bonds(beta: float, n: int = SW_SIZE, sweeps: int = 3) -> tuple:
@@ -688,6 +784,7 @@ def phase_main_path(launches: dict) -> dict:
     from repro_torch import random as jr
     from repro_torch.api import EngineConfig, IsingEngine
     from repro_torch.core import sampler
+    from repro_torch.kernels import build
     from repro_torch.kernels import ops
     finals, out = {}, {}
     torch.cuda.reset_peak_memory_stats()
@@ -703,6 +800,10 @@ def phase_main_path(launches: dict) -> dict:
         counts = _read_launches(f"main path {backend}",
                                 {keyed: 2 * MAIN_SWEEPS,
                                  "blocked_totals": MAIN_SWEEPS})
+        if build.launches["flip_lut"]:
+            raise AssertionError(f"main path {backend}: "
+                                 f"{build.launches['flip_lut']} flip "
+                                 "launches, want 0")
         launches[keyed] = counts[keyed]
         launches["blocked_totals"] = MAIN_SWEEPS
         m, e = res.magnetization, res.energy
@@ -3162,6 +3263,40 @@ def phase_draw_timing(errs: dict, launches: dict, clock_hz: float,
         library_ms=None, f32_batch16_ms=f32_ms, randint_ms=int_ms)
 
 
+def phase_flip_timing(errs: dict, launches: dict) -> dict:
+    """The flip kernel at a quad of the launcher's colour update (bf16
+    spins and uniforms, T_c), written in place, against its byte bound
+    (the spin, its sum and its uniform read and the spin written: 8 B a
+    site) and the eager LUT chain with its copy into the stack."""
+    import torch
+    from repro_torch.core import update_rules as rules
+    from repro_torch.kernels import flip as kflip
+    bf16 = torch.bfloat16
+    sigma, nn, probs = flip_inputs(74, bf16, bf16)
+    work = sigma.clone()
+    _flip_equals_eager("timed bf16 in place", work, nn, probs, errs,
+                       out=work)
+    del work
+    table = kflip.lut_table(BETA, bf16)
+    n = math.prod(FLIP_SHAPE)
+    bound_ms = n * 8 / HBM_BYTES_PER_S * 1e3
+    ms = time_ms(lambda: kflip.flip_lut(sigma, nn, probs, table, out=sigma),
+                 reps=50)
+    rule = rules.get_rule("lut")
+    eager_ms = time_ms(lambda: sigma.copy_(rule.flip_probs(sigma, nn, probs,
+                                                           BETA)), reps=10)
+    del sigma, nn, probs
+    log(f"time flip_lut bf16 {list(FLIP_SHAPE)}: {ms:.4f} ms per launch, "
+        f"bound {bound_ms:.4f} ms (bytes, 8 B a site), "
+        f"{bound_ms / ms:.1%} of bound; eager chain and copy {eager_ms:.3f} "
+        "ms")
+    return dict(
+        name="flip_lut", route="cuda", source=FLIP_CU, replaces=None,
+        launches=launches["flip_lut"], max_abs_err=errs["flip_lut"], ms=ms,
+        plain_ms=eager_ms, bound_ms=bound_ms, bound_by="bytes",
+        library_ms=None)
+
+
 def phase_label_timing(errs: dict, launches: dict) -> dict:
     """The label kernel at the Swendsen-Wang cells' shape, on FK bonds at
     each cell's beta, against its byte bound (the two masks read and the
@@ -3282,6 +3417,7 @@ def phase_timing(launches: dict, errs: dict, sweeps: int = 20) -> tuple:
     records.append(fold)
     records.append(phase_label_timing(errs, launches))
     records.append(phase_draw_timing(errs, launches, clock_hz, sms))
+    records.append(phase_flip_timing(errs, launches))
     del qb, bits
     runs = {}
     for backend, (keyed, _) in BACKENDS.items():
@@ -3325,13 +3461,14 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     phase_build()
     names = (*KERNELS, "blocked_totals", "fold_in_bits", "label_components",
-             "threefry_draw")
+             "threefry_draw", "flip_lut")
     errs = {name: 0.0 for name in names}
     launches = {name: 0 for name in names}
     phase_kernels_vs_plain(errs)
     phase_fold_in(errs, launches)
     phase_label(errs, launches)
     phase_draw(errs, launches)
+    phase_flip(errs, launches)
     phase_main_path(launches)
     phase_small_and_chain()
     t_lm = time.perf_counter()

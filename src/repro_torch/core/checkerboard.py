@@ -13,10 +13,12 @@ comparable when fed the same uniforms:
                                  their results are small integers, exact in
                                  bf16 and f32.
 
-Site updates dispatch on :mod:`repro_torch.core.update_rules`. The
-Algorithm-2 neighbour sums (:func:`nn_black`, :func:`nn_white`: the K-hat
-matmuls and the halo lines) run inside the ``repro_torch.checkerboard.nn``
-span.
+Site updates dispatch on :mod:`repro_torch.core.update_rules`; on the card
+the LUT rule at a Python-number beta and no field runs as one flip kernel
+(:func:`repro_torch.kernels.flip.flip_lut`). The Algorithm-2 neighbour
+sums (:func:`nn_black`, :func:`nn_white`: the K-hat matmuls and the halo
+lines) run inside the ``repro_torch.checkerboard.nn`` span, the site
+update (:func:`_flip`) inside ``repro_torch.checkerboard.flip``.
 """
 from __future__ import annotations
 
@@ -24,14 +26,37 @@ import torch
 
 from repro_torch.core import lattice as L
 from repro_torch.core import update_rules as rules
+from repro_torch.kernels import flip as kflip
 from repro_torch.spans import span
 
 NN = "repro_torch.checkerboard.nn"
+FLIP = "repro_torch.checkerboard.flip"
+# the rule names whose float-uniform form the flip kernel computes
+KERNEL_RULES = ("lut", "metropolis", "metropolis_lut")
 
 
-def _flip(sigma, nn, probs, beta, accept: str, field: float = 0.0):
-    """One colour's site update through the update-rule registry."""
-    return rules.get_rule(accept).flip_probs(sigma, nn, probs, beta, field)
+def _kernel_takes(sigma, nn, probs, beta, accept, field, out) -> bool:
+    """Whether the flip kernel computes this update on the card: the LUT
+    rule, a Python-number beta (one table for every site), no field, and
+    operands the kernel takes."""
+    return (accept in KERNEL_RULES and isinstance(beta, (int, float))
+            and not field
+            and kflip.operands_problem(sigma, nn, probs, out) is None)
+
+
+def _flip(sigma, nn, probs, beta, accept: str, field: float = 0.0,
+          out=None):
+    """One colour's site update through the update-rule registry, written
+    to ``out`` when given (``sigma`` itself may be) and returned. On the
+    card the LUT rule at a number beta and no field is one flip kernel
+    launch; every other form runs the rule's eager chain."""
+    with span(FLIP):
+        if sigma.is_cuda and _kernel_takes(sigma, nn, probs, beta, accept,
+                                           field, out):
+            return kflip.flip_lut(sigma, nn, probs,
+                                  kflip.lut_table(beta, sigma.dtype), out)
+        new = rules.get_rule(accept).flip_probs(sigma, nn, probs, beta, field)
+        return new if out is None else out.copy_(new)
 
 
 # ---------------------------------------------------------------------------

@@ -152,15 +152,16 @@ def _local_color_update(qb, key, step, color, cfg, edges,
         bits = _draw_bits(k, (2,) + blk, cfg, qb.device)
         new0 = rule.flip_bits_int(s0, nn0.to(s0.dtype), bits[0], cfg.beta)
         new1 = rule.flip_bits_int(s1, nn1.to(s1.dtype), bits[1], cfg.beta)
+        qb[i0] = new0
+        qb[i1] = new1
     else:  # paper-faithful float pipeline
         probs = jr.uniform(k, (2,) + blk, L.torch_dtype(cfg.prob_dtype),
                            qb.device)
+        # written into the stack in place
         new0 = cb._flip(s0, nn0.to(s0.dtype), probs[0], cfg.beta,
-                        cfg.probs_rule())
+                        cfg.probs_rule(), out=s0)
         new1 = cb._flip(s1, nn1.to(s1.dtype), probs[1], cfg.beta,
-                        cfg.probs_rule())
-    qb[i0] = new0
-    qb[i1] = new1
+                        cfg.probs_rule(), out=s1)
     if return_stats:
         return qb, (new0, new1, nn0, nn1)
     return qb

@@ -42,6 +42,7 @@ SOURCES = {
     "threefry_fold": "threefry_fold.cu",
     "label_components": "label_components.cu",
     "threefry_draw": "threefry_draw.cu",
+    "metropolis_flip": "metropolis_flip.cu",
 }
 
 # the spins' dtype as the kernels' ``dtype`` argument
@@ -51,7 +52,7 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 launches = dict.fromkeys((
     "update_color_tiles", "update_color_lines", "update_color_tiles_keyed",
     "update_color_lines_keyed", "blocked_totals", "fold_in_bits",
-    "threefry_bits", "label_components", "threefry_draw"), 0)
+    "threefry_bits", "label_components", "threefry_draw", "flip_lut"), 0)
 
 _LOADED: dict = {}
 _FUNCTIONS: dict = {}

@@ -36,6 +36,14 @@ The spans, each where its work happens so that every caller gets it:
   updates enter it (one rank of a grid, the ``chain`` scenario, the
   ``ref`` backend), and ``blocked_totals``' f32 chain inside its own
   span; the keyed kernels and the measurement kernel never do;
+* ``repro_torch.checkerboard.flip``: ``core.checkerboard._flip``, one
+  quad's site update from its spins, neighbour sums and uniforms: on the
+  card the flip kernel's launch for the LUT rule at a number beta and no
+  field, else the rule's eager chain (and its copy into ``out`` where the
+  caller gives one). The XLA-form colour updates enter it once a quad
+  (one rank of a grid's paper pipeline, the ``chain`` scenario, the
+  oracle); the keyed kernels, the opt pipeline and the cluster sweeps
+  never do;
 * ``repro_torch.random.draws``: ``random.bits``, ``random.uniform`` and
   ``random.randint``, the threefry draws on the caller's device: on the
   card the draw kernel's launch, elsewhere the eager int64 form

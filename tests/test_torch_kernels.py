@@ -189,9 +189,9 @@ def test_build_paths_follow_the_sources(tmp_path, monkeypatch):
     names = set(build.SOURCES)
     assert names == {"checkerboard_tiles", "checkerboard_lines",
                      "blocked_totals", "threefry_fold", "label_components",
-                     "threefry_draw"}
+                     "threefry_draw", "metropolis_flip"}
     paths = {n: build.library_path(n) for n in names}
-    assert len(set(paths.values())) == 6
+    assert len(set(paths.values())) == 7
     assert all(p.parent == build.BUILD_DIR for p in paths.values())
     assert build.library_path("checkerboard_tiles") == \
         paths["checkerboard_tiles"]

@@ -131,11 +131,12 @@ def _free_chunk(path: str):
 @pytest.mark.parametrize("path", ["grid", "tiles"])
 def test_draws_and_neighbour_sums_on_the_grid_path_only(path):
     """The grid's colour update draws its uniforms and forms its K-hat sums
-    once a colour; the keyed tile path draws in its kernel and does
-    neither."""
+    once a colour and flips its two quads' sites once each; the keyed tile
+    path draws and flips in its kernel and does none of it."""
     _, counts = _profiled(lambda: _free_chunk(path))
     grid = {"repro_torch.random.draws": 2 * SWEEPS,
-            "repro_torch.checkerboard.nn": 2 * SWEEPS}
+            "repro_torch.checkerboard.nn": 2 * SWEEPS,
+            "repro_torch.checkerboard.flip": 4 * SWEEPS}
     assert dict(counts) == (grid if path == "grid" else
                             {"repro_torch.kernels.block": 1,
                              "repro_torch.kernels.unblock": 1})
